@@ -1,0 +1,346 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``kcp_tpu_torch``) on one NVIDIA card.
+
+Run from the repo root with no arguments: ``python3 chip_smoke.py``.
+Phases, each fatal on failure:
+
+1. device — a CUDA card must be present; prints its name and power limit;
+2. build — compiles the port's CUDA kernel from ``kcp_tpu_torch/csrc``;
+3. kernel vs plain — ``decide_and_match`` against its plain PyTorch
+   version on the card, exact equality, at the serving shape
+   (B=131,072, S=64, per-row mask, L=1, C=8), the model example shape
+   (B=8,192, S=64, bucket-wide mask, L=8, C=64) and a ragged
+   B=131,071; with kernel time, plain time and the bandwidth bound;
+4. device step vs CPU step — ``reconcile_step_fleet`` on the card and on
+   the CPU from one seeded state and wire at B=131,072, S=64 (acks with
+   padding, mask and segment stamps, then an overflow tick): the wires
+   must be byte-equal;
+5. main path — a closed churn loop through the port's ``FusedCore``
+   (fleet batch on, pipeline "double") at 131,072 rows x 64 slots:
+   every churned row must converge, the kernel's launch count must cover
+   every tick, and no step may fail or quarantine a row.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without a card the script exits 2
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+ALU_OPS_PER_S = 67e12  # H100 SXM non-tensor peak (float32 table rate)
+SERVING = dict(b=131072, s=64, l=1, c=8, per_row=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def kernel_case(rng, b, s, l, c, per_row, torch, dev):
+    """Seeded inputs with a few percent of dirty, created and deleted
+    rows, and label hashes from a small alphabet so selectors hit."""
+    up = rng.integers(1, 2**32, (b, s), dtype=np.uint32)
+    down = up.copy()
+    spec = rng.random(b) < 0.03
+    down[spec, 0] ^= 1
+    stat = rng.random(b) < 0.02
+    down[stat, s - 1] ^= 1
+    upe = rng.random(b) >= 0.02  # deleted upstream
+    dne = rng.random(b) >= 0.02  # not yet created downstream
+    if per_row:
+        mask = np.zeros((b, s), bool)
+        mask[:, -max(1, s // 8):] = True
+        mask[rng.random(b) < 0.1] = False  # rows of another vocabulary
+    else:
+        mask = np.zeros(s, bool)
+        mask[-max(1, s // 8):] = True
+    pair = rng.integers(1, 16, (b, l), dtype=np.uint32)
+    sel = rng.integers(1, 16, c, dtype=np.uint32)
+
+    def t(a):
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(a).to(dev)
+
+    return tuple(t(a) for a in (up, upe, down, dne, mask, pair, sel))
+
+
+def bound(case, outs) -> tuple[float, str, int]:
+    """Least time for the call: bytes (each input read once, each output
+    written once) over the HBM rate vs operations over the ALU rate."""
+    up, _upe, _down, _dne, _mask, pair, sel = case
+    nbytes = sum(x.numel() * x.element_size() for x in (*case, *outs))
+    b, s = up.shape
+    ops = 3 * b * s + 2 * b * pair.shape[1] * sel.shape[0]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes)
+
+
+def time_ms(fn, torch, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, torch) -> tuple[float, dict]:
+    """Run ``fn()`` under torch.profiler: (wall s, {device event name:
+    (count, device us)}). Empty when the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            events[e.key] = (e.count, e.device_time_total)
+    return wall, events
+
+
+def step_case(rng, b, s, d, torch):
+    """A seeded fleet state + wire: per-row masks, deltas, acks with -1
+    padding, mask stamps carrying segment ids."""
+    from kcp_tpu_torch.models import reconcile_model as tm
+
+    up = rng.integers(1, 2**32, (b, s), dtype=np.uint32)
+    down = up.copy()
+    down[rng.random(b) < 0.004, 0] ^= 1
+    mask = np.zeros((b, s), bool)
+    mask[:, -s // 8:] = True
+    r, p = 64, 8
+    state = tm.ReconcileState(
+        up_vals=up, up_exists=rng.random(b) >= 0.01, down_vals=down,
+        down_exists=rng.random(b) >= 0.01, status_mask=mask,
+        replicas=rng.integers(0, 100, r).astype(np.int32),
+        avail=rng.random((r, p)) < 0.9, current=np.zeros((r, p), np.int32),
+        pair_hashes=np.zeros((b, 1), np.uint32), sel_hashes=np.zeros(8, np.uint32))
+    seg = rng.integers(0, 8, b).astype(np.int32)
+    seg[rng.random(b) < 0.05] = tm.SEG_NONE
+    deltas = tm.example_deltas(b=b, s=s, d=d, seed=int(rng.integers(1 << 30)))
+    stamps = np.zeros((32, s + 2), np.uint32)
+    stamps[:, s - 8:] = 1
+    stamps[:, s] = rng.choice(b, 32, replace=False)
+    stamps[:, s + 1] = (4 | tm.MASK_STAMP_BIT
+                        | (rng.integers(0, 8, 32).astype(np.uint32) << tm.SEG_SHIFT))
+    packed = np.concatenate([tm.pack_deltas(deltas), stamps])
+    touched = set(deltas.idx[deltas.valid & ~deltas.side].tolist())
+    free = np.array([i for i in rng.choice(b, 2048, replace=False) if i not in touched])
+    acks = np.full(8192, -1, np.int32)
+    acks[:512] = free[:512]
+    return state, seg, packed, acks
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card: nothing to run", file=sys.stderr)
+        sys.exit(2)
+    from kcp_tpu_torch.bench import closed_loop
+    from kcp_tpu_torch.models import reconcile_model as tm
+    from kcp_tpu_torch.ops import cuda_kernels
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match, decide_and_match_plain
+    from kcp_tpu_torch.syncer.core import FusedCore
+    from kcp_tpu_torch.utils.trace import REGISTRY
+
+    t_all = time.perf_counter()
+    dev = torch.device("cuda")
+    # ---- 1. device
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(card)  # name, power limit: as nvidia-smi prints them
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+          f"{sys.version.split()[0]} devices {torch.cuda.device_count()}")
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    lib = cuda_kernels.build()
+    print(f"build: {lib} in {time.perf_counter() - t0:.2f} s")
+    if cuda_kernels.build_info.get("log"):
+        for line in cuda_kernels.build_info["log"].splitlines():
+            if "registers" in line or "Compiling" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    # ---- 3. kernel vs plain, exact equality, three shapes
+    shapes = [
+        ("serving", SERVING),
+        ("example", dict(b=8192, s=64, l=8, c=64, per_row=False)),
+        ("ragged", dict(b=131071, s=64, l=1, c=8, per_row=True)),
+    ]
+    rng = np.random.default_rng(2024)
+    record = None
+    for name, sh in shapes:
+        if name == "example":
+            st = tm.example_state(b=sh["b"], s=sh["s"], l=sh["l"], c=sh["c"], seed=3,
+                                  dirty_frac=0.03)
+            upe = rng.random(sh["b"]) >= 0.02
+            dne = rng.random(sh["b"]) >= 0.02
+            pair = np.asarray(st.pair_hashes).copy()
+            pair[rng.random(sh["b"]) < 0.3, 0] = st.sel_hashes[0]
+            case = tuple(tm.to_device(a, dev) for a in (
+                st.up_vals, upe, st.down_vals, dne, st.status_mask, pair, st.sel_hashes))
+        else:
+            case = kernel_case(rng, sh["b"], sh["s"], sh["l"], sh["c"], sh["per_row"],
+                               torch, dev)
+        got = decide_and_match(*case)
+        torch.cuda.synchronize()
+        want = decide_and_match_plain(*case)
+        torch.cuda.synchronize()
+        err = 0
+        for label, g, w in zip(("decision", "upsync", "counts"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{name}: {label} is {g.dtype}{tuple(g.shape)}, plain "
+                     f"{w.dtype}{tuple(w.shape)}")
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+        if err:
+            fail(f"{name}: kernel differs from the plain version (max abs err {err})")
+        if int(want[0].ne(0).sum()) == 0 or int(want[2].sum()) == 0:
+            fail(f"{name}: vacuous case (no decisions or no selector hits)")
+        call_ms = time_ms(lambda: decide_and_match(*case), torch, 50)
+        plain_ms = time_ms(lambda: decide_and_match_plain(*case), torch, 10)
+        # the kernel's own device time (the back-to-back call time above
+        # also holds the wrapper's launch cost where that is longer)
+        _wall, ev = device_profile(
+            lambda: [decide_and_match(*case) for _ in range(20)], torch)
+        dev_us = [us / n for k, (n, us) in ev.items() if "decide_match_kernel" in k]
+        ms = dev_us[0] / 1e3 if dev_us else call_ms
+        bound_ms, bound_by, nbytes = bound(case, got)
+        print(f"kernel decide_and_match [{name}: B={sh['b']} S={sh['s']} "
+              f"mask={'row' if sh['per_row'] else 'bucket'} L={sh['l']} C={sh['c']}]: "
+              f"equal (tolerance: exact); kernel {ms:.4f} ms on the device "
+              f"({'profiler' if dev_us else 'events: profiler saw no device time'}), "
+              f"{call_ms:.4f} ms per back-to-back call (events), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, "
+              f"{bound_ms / ms * 100:.1f}% of the bound rate); library call: "
+              f"none (no single PyTorch call computes this function) [{card}]")
+        if name == "serving":
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        torch.cuda.synchronize()
+
+    # ---- 4. device step vs CPU step, byte-equal wires
+    b, s = 131072, 64
+    state, seg, packed, acks = step_case(np.random.default_rng(7), b, s, 1024, torch)
+    gpu = [tm.state_from_numpy(state, dev), tm.to_device(seg, dev)]
+    cpu = [tm.state_from_numpy(state, "cpu"), tm.to_device(seg, "cpu")]
+    for tick, cap in enumerate((8192, 256)):
+        if tick:  # a second wire on the carried state; capacity forces overflow
+            _st, _sg, packed, acks = step_case(np.random.default_rng(8), b, s, 1024, torch)
+        outs = []
+        for side, d in ((gpu, dev), (cpu, torch.device("cpu"))):
+            side[0], side[1], wire = tm.reconcile_step_fleet(
+                side[0], side[1], tm.to_device(packed, d), tm.to_device(acks, d),
+                patch_capacity=cap, seg_capacity=8)
+            outs.append(tm.wire_to_numpy(wire))
+        torch.cuda.synchronize()
+        if outs[0].tobytes() != outs[1].tobytes():
+            diff = np.flatnonzero(outs[0] != outs[1])
+            fail(f"step tick {tick}: card wire != CPU wire at {diff[:10].tolist()}")
+        if bool(outs[0][1]) != (cap == 256):
+            fail(f"step tick {tick}: overflow flag {bool(outs[0][1])} at capacity {cap}")
+    step_ms = time_ms(lambda: tm.reconcile_step_fleet(
+        gpu[0], gpu[1], tm.to_device(packed, dev), tm.to_device(acks, dev),
+        patch_capacity=8192, seg_capacity=8), torch, 20)
+    print(f"step: reconcile_step_fleet card wire == CPU wire, 2 ticks at B={b} S={s} "
+          f"(acks, mask+segment stamps, overflow tick); device step {step_ms:.4f} ms "
+          f"incl. upload [{card}]")
+    del gpu, cpu
+
+    # ---- 5. main path: closed loop through FusedCore, fleet on, double
+    core = FusedCore(batch_window=0.0005)
+    if not core.fleet_mode or core.pipeline != "double":
+        fail(f"defaults changed: fleet={core.fleet_mode} pipeline={core.pipeline}")
+    fail0 = REGISTRY.counter("fused_step_failures_total").value
+    quar0 = REGISTRY.counter("quarantined_rows").value
+    decide_and_match.launches = 0
+    out = asyncio.run(closed_loop(core, 131072, 64, churn=768, seconds=10.0,
+                                  warmup_ticks=24))
+    torch.cuda.synchronize()
+    launches = decide_and_match.launches
+    ticks_all = core._fleet.stats["ticks"]
+    if not out["converged"]:
+        fail("main path: rows left unconverged after stop()")
+    if REGISTRY.counter("fused_step_failures_total").value != fail0:
+        fail("main path: fused step failures")
+    if REGISTRY.counter("quarantined_rows").value != quar0:
+        fail("main path: rows quarantined")
+    if launches < ticks_all or launches == 0:
+        fail(f"main path: {launches} kernel launches for {ticks_all} ticks")
+    snap = REGISTRY.snapshot()
+    phases = " ".join(
+        f"{k[6:-8]}={v['mean'] * 1e3:.3f}ms" for k, v in sorted(snap.items())
+        if k.startswith("fused_") and k.endswith("_seconds") and isinstance(v, dict)
+        and v["count"])
+    print(f"main path: FusedCore fleet/double, rows={out['rows']} slots={out['slots']} "
+          f"tenants~{out['rows'] // 13} churn/tick={out['churn_per_tick']}: "
+          f"{out['ticks']} ticks in {out['seconds']:.2f} s ({out['ms_per_tick']:.3f} "
+          f"ms/tick), reconciles/s {out['reconciles_per_s']:.0f}, convergence p50 "
+          f"{out['convergence_p50_ms']:.3f} ms p99 {out['convergence_p99_ms']:.3f} ms, "
+          f"patch rows/tick {out['patch_rows_per_tick']:.1f}, warmup "
+          f"{out['warmup_ticks']} ticks in {out['warmup_s']:.2f} s; kernel launches "
+          f"{launches} for {ticks_all} ticks; all rows converged; work queue "
+          f"{type(core.controller.queue).__name__} [{card}]")
+    print(f"tick phases (mean): {phases}")
+
+    # ---- 5b. where the device time goes: a short profiled closed loop
+    #          (after the counts above were read; not part of the record)
+    prof_core = FusedCore(batch_window=0.0005)
+    prof_out = {}
+    wall, ev = device_profile(lambda: prof_out.update(asyncio.run(closed_loop(
+        prof_core, 131072, 64, churn=768, seconds=3.0, warmup_ticks=4))), torch)
+    busy_us = sum(us for _n, us in ev.values())
+    if busy_us:
+        top = sorted(ev.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"profiled loop: {prof_out['ticks']} ticks, wall {wall:.2f} s, device busy "
+              f"{busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall * 100:.1f}% (sum of device "
+              f"event time / wall), idle {100 - busy_us / 1e6 / wall * 100:.1f}%; top: "
+              + "; ".join(f"{k[:60]} x{n} {us / 1e3:.1f} ms" for k, (n, us) in top)
+              + f" [{card}]")
+    else:
+        print("profiled loop: the profiler saw no device time: busy share not measured")
+    print(f"total {time.perf_counter() - t_all:.1f} s")
+
+    record.update(name="decide_and_match", route="cuda",
+                  source="kcp_tpu_torch/csrc/decide_match.cu",
+                  replaces="kcp_tpu/ops/pallas_kernels.py:129", launches=launches,
+                  library_ms=None)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,521 @@
+"""The flagship device program: one fused reconcile step for the fleet
+(the port of ``kcp_tpu.models.reconcile_model``).
+
+One step runs the whole control plane's decision math over resident
+tensors:
+
+  1. scatter the tick's informer deltas into the resident mirrors
+  2. spec/status three-way diff over every row        (syncer lanes)
+  3. replica placement over every root deployment      (splitter lane)
+  4. label-selector fan-out over every object x cluster (informer lane)
+  5. global convergence statistics
+
+Lanes 2 and 4 always go through ``decide_and_match``: the hand-written
+CUDA kernel on the card, its plain PyTorch version on the CPU.
+
+Where the reference donates its state to a jitted step, this port
+updates the resident mirrors IN PLACE: ``up_vals``/``up_exists``/
+``down_vals``/``down_exists``, a per-row ``status_mask`` and the fleet's
+``seg_ids`` are written by the step, and the returned state (same
+tensors, plus the new ``current`` placement) is the one to keep. A
+caller that must keep its input intact (the poison-row probe) passes
+clones. ``uint32`` lanes are ``int32`` bit views; every count, index and
+wire word is ``int32``; nothing in a step waits for the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.cuda_kernels import decide_and_match
+from ..ops.diff import apply_deltas, compact_patches, first_true, scatter_rows_drop
+from ..ops.placement import placement_changed, split_replicas
+from ..utils.device import resolve_device
+
+
+class ReconcileState(NamedTuple):
+    """Resident control-plane state (one schema bucket, or the fleet).
+
+    B = object rows (all tenants), S = slot columns, R = root deployments,
+    P = physical clusters, L = label slots, C = cluster selectors.
+    """
+
+    up_vals: torch.Tensor  # int32 view of uint32 [B, S]
+    up_exists: torch.Tensor  # bool [B]
+    down_vals: torch.Tensor  # int32 view of uint32 [B, S]
+    down_exists: torch.Tensor  # bool [B]
+    status_mask: torch.Tensor  # bool [S] (bucket-wide) or [B, S] (per-row)
+    replicas: torch.Tensor  # int32 [R]
+    avail: torch.Tensor  # bool [R, P]
+    current: torch.Tensor  # int32 [R, P] currently-applied leaf replicas
+    pair_hashes: torch.Tensor  # int32 view of uint32 [B, L]
+    sel_hashes: torch.Tensor  # int32 view of uint32 [C]
+
+
+class ReconcileDeltas(NamedTuple):
+    """One tick's informer deltas, padded to a fixed D. Single-sided: one
+    payload column per row, routed by ``side``."""
+
+    idx: torch.Tensor  # int32 [D] row indices
+    vals: torch.Tensor  # int32 view of uint32 [D, S] (ignored for deletes)
+    exists: torch.Tensor  # bool [D] False = delete event
+    side: torch.Tensor  # bool [D] False = upstream mirror, True = downstream
+    valid: torch.Tensor  # bool [D] padding mask
+
+
+class ReconcileOutputs(NamedTuple):
+    # compact lanes — the only thing the host applier fetches each tick
+    patch_idx: torch.Tensor  # int32 [K] actionable row indices (pad = B)
+    patch_code: torch.Tensor  # uint8 [K] decision per patch row
+    patch_upsync: torch.Tensor  # bool [K] status-upsync flag per patch row
+    patch_count: torch.Tensor  # int32 [] valid patch rows
+    patch_overflow: torch.Tensor  # bool [] > K rows actionable this tick
+    stats: torch.Tensor  # int32 [8] global counters (see STATS_FIELDS)
+    # full lanes — stay resident; fetched only by tests/debugging
+    decision: torch.Tensor  # uint8 [B] NOOP/CREATE/UPDATE/DELETE
+    status_upsync: torch.Tensor  # bool [B]
+    leaf_replicas: torch.Tensor  # int32 [R, P] desired placement
+    placement_dirty: torch.Tensor  # bool [R]
+    match_counts: torch.Tensor  # int32 [C] objects matched per cluster selector
+
+
+STATS_FIELDS = (
+    "rows", "creates", "updates", "deletes", "upsyncs",
+    "placement_dirty", "matched", "applied_deltas",
+)
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "kcp_tpu_torch runs on one device; multi-device serving (mesh=) "
+            "is not ported yet")
+
+
+def reconcile_step(state: ReconcileState, deltas: ReconcileDeltas,
+                   patch_capacity: int = 8192, mesh=None,
+                   ) -> tuple[ReconcileState, ReconcileOutputs]:
+    """One fused step. Updates the state's mirrors in place (see the
+    module docstring) and returns (new state, outputs)."""
+    _no_mesh(mesh)
+    i32 = torch.int32
+    # 1. scatter deltas, routed by side (apply_deltas owns the padding-
+    #    drop and unique-index contract)
+    up_vals, up_exists = apply_deltas(
+        state.up_vals, state.up_exists, deltas.idx,
+        deltas.vals, deltas.exists, deltas.valid & ~deltas.side)
+    down_vals, down_exists = apply_deltas(
+        state.down_vals, state.down_exists, deltas.idx,
+        deltas.vals, deltas.exists, deltas.valid & deltas.side)
+
+    # 2+4. decision lanes and fan-out counts in one pass (only resident
+    #      upstream objects fan out)
+    decision, status_upsync, match_counts = decide_and_match(
+        up_vals, up_exists, down_vals, down_exists, state.status_mask,
+        state.pair_hashes, state.sel_hashes)
+
+    # 3. splitter lane
+    leaf = split_replicas(state.replicas, state.avail)
+    p_dirty = placement_changed(state.current, leaf)
+
+    # 5. global stats
+    stats = torch.stack([
+        up_exists.sum(dtype=i32),
+        (decision == 1).sum(dtype=i32),
+        (decision == 2).sum(dtype=i32),
+        (decision == 3).sum(dtype=i32),
+        status_upsync.sum(dtype=i32),
+        p_dirty.sum(dtype=i32),
+        match_counts.sum(dtype=i32),
+        deltas.valid.sum(dtype=i32),
+    ])
+
+    new_state = state._replace(current=leaf)
+    patches = compact_patches(decision, status_upsync, patch_capacity)
+    outputs = ReconcileOutputs(
+        patch_idx=patches.idx, patch_code=patches.code,
+        patch_upsync=patches.upsync, patch_count=patches.count,
+        patch_overflow=patches.overflow,
+        decision=decision, status_upsync=status_upsync,
+        leaf_replicas=leaf, placement_dirty=p_dirty,
+        match_counts=match_counts, stats=stats,
+    )
+    return new_state, outputs
+
+
+# ---------------------------------------------------------------------------
+# Packed wire format — one array per direction across the host<->device
+# link, byte-for-byte the reference's. Patch entries carry row index (20
+# bits), decision code (2 bits, bit 20-21) and the status-upsync flag
+# (bit 23).
+#
+# Wire layout (int32):
+#   [0]                 patch count
+#   [1]                 patch overflow flag
+#   [2:10]              stats
+#   [10]                placement-dirty count
+#   [PACK_HDR : +K]     packed patch entries (K = patch_capacity)
+#   [PACK_HDR+K : +R*(1+P)]  placement entries: R rows of (root row index
+#                       or R for padding, P leaf counts), dirty roots first
+#   fleet wires only: seg_capacity per-segment live-row counts
+# ---------------------------------------------------------------------------
+
+PACK_HDR = 16  # int32 slots ahead of the packed patch entries
+PACK_IDX_MASK = (1 << 20) - 1
+PACK_CODE_SHIFT = 20
+PACK_UPSYNC_BIT = 1 << 23
+PACK_PLACEMENT_COUNT = 10  # hdr slot carrying the placement-dirty count
+MASK_STAMP_BIT = 8  # flag: entry carries a status-mask row, not a delta
+
+
+def pack_deltas(deltas) -> np.ndarray:
+    """Host-side: pack a (numpy) delta batch into one uint32 [D, S+2] array."""
+    d = np.asarray(deltas.vals).shape[0]
+    flags = (
+        np.asarray(deltas.exists).astype(np.uint32)
+        | (np.asarray(deltas.side).astype(np.uint32) << 1)
+        | (np.asarray(deltas.valid).astype(np.uint32) << 2)
+    )
+    return np.concatenate(
+        [
+            np.asarray(deltas.vals),
+            np.asarray(deltas.idx).astype(np.uint32).reshape(d, 1),
+            flags.reshape(d, 1),
+        ],
+        axis=1,
+    )
+
+
+def unpack_deltas(packed: torch.Tensor) -> ReconcileDeltas:
+    """Device-side: unpack the int32 view of the uint32 [D, S+2] wire.
+    Mask-stamp entries (flag bit 8) are excluded from ``valid`` and
+    consumed by :func:`apply_mask_stamps`."""
+    s = packed.shape[1] - 2
+    flags = packed[:, s + 1]
+    return ReconcileDeltas(
+        idx=packed[:, s],
+        vals=packed[:, :s],
+        exists=(flags & 1) != 0,
+        side=(flags & 2) != 0,
+        valid=((flags & 4) != 0) & ((flags & MASK_STAMP_BIT) == 0),
+    )
+
+
+def _stamp_rows(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(selected, row index, flags) of the wire's MASK_STAMP entries."""
+    s = packed.shape[1] - 2
+    flags = packed[:, s + 1]
+    sel = ((flags & 4) != 0) & ((flags & MASK_STAMP_BIT) != 0)
+    return sel, packed[:, s], flags
+
+
+def apply_mask_stamps(status_mask: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """Scatter mask-stamp entries into the per-row status mask, in place.
+
+    A row allocated after its bucket's last full upload has a host-side
+    mask stamp the device never saw; the stamp rides the packed wire as
+    a flag-bit-8 entry whose vals columns are the bool mask row."""
+    if status_mask.ndim != 2:
+        return status_mask  # bucket-wide [S] masks have no per-row lane
+    sel, idx, _flags = _stamp_rows(packed)
+    s = packed.shape[1] - 2
+    scatter_rows_drop(status_mask, idx, packed[:, :s] != 0, sel)
+    return status_mask
+
+
+def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
+                          acks: torch.Tensor | None = None,
+                          patch_capacity: int = 8192, mesh=None,
+                          ) -> tuple[ReconcileState, torch.Tensor]:
+    """The wire-format step: one int32 [D, S+2] array in (a bit view of
+    the uint32 wire), one int32 array out.
+
+    ``acks`` is the converged-row compression lane: int32 row indices
+    (negative = padding) whose downstream mirror becomes a copy of the
+    resident upstream mirror; the copy runs before the delta scatter."""
+    _no_mesh(mesh)
+    b = state.up_vals.shape[0]
+    if b > PACK_IDX_MASK + 1:
+        raise ValueError(
+            f"packed patch entries hold 20-bit row indices; B={b} exceeds "
+            f"{PACK_IDX_MASK + 1} — shard the bucket or use the unpacked "
+            f"ReconcileOutputs lanes")
+    i32 = torch.int32
+    if acks is not None and b > 0:
+        # padding (-1) must not scatter AT ALL: scatter_rows_drop routes
+        # it to a no-op write instead of clipping it onto row 0
+        valid = (acks >= 0) & (acks < b)
+        gather = acks.clamp(0, b - 1).long()
+        scatter_rows_drop(state.down_vals, acks, state.up_vals[gather], valid)
+        scatter_rows_drop(state.down_exists, acks, state.up_exists[gather], valid)
+    apply_mask_stamps(state.status_mask, packed)
+    new_state, out = reconcile_step(state, unpack_deltas(packed), patch_capacity)
+    upsync_bit = torch.where(out.patch_upsync, PACK_UPSYNC_BIT, 0).to(i32)
+    entries = (out.patch_idx
+               | (out.patch_code.to(i32) << PACK_CODE_SHIFT)
+               | upsync_bit)
+    # placement segment: dirty roots compacted first, each carrying its
+    # P leaf counts (the deployment splitter's serving lane)
+    r = state.replicas.shape[0]
+    dirty = out.placement_dirty
+    pidx = first_true(dirty, r)
+    safe = pidx.clamp(max=r - 1).long()
+    counts = torch.where((pidx < r)[:, None], out.leaf_replicas[safe], 0).to(i32)
+    pl_entries = torch.cat([pidx[:, None], counts], dim=1).reshape(-1)
+    dev = packed.device
+    hdr = torch.cat([
+        out.patch_count.view(1),
+        out.patch_overflow.to(i32).view(1),
+        out.stats,
+        dirty.sum(dtype=i32).view(1),
+        torch.zeros(PACK_HDR - 11, dtype=i32, device=dev),
+    ])
+    return new_state, torch.cat([hdr, entries, pl_entries])
+
+
+# ---------------------------------------------------------------------------
+# Fleet lane — cross-bucket ragged batching (syncer/core.py FleetBatch).
+# Each fleet row carries a segment id (its owning section) in a resident
+# int32 [B] lane. Rows allocated after the last full upload learn theirs
+# from their MASK_STAMP entry (flag bits 8..23); the step ends with a
+# per-segment count of live upstream rows on the wire tail.
+# ---------------------------------------------------------------------------
+
+SEG_SHIFT = 8  # mask-stamp flag bits [8..23] carry the row's segment id
+SEG_FIELD_MASK = 0xFFFF
+# unowned/freed rows: always >= any real segment capacity, so the
+# counter scatter drops them
+SEG_NONE = 0xFFFF
+
+
+def apply_seg_stamps(seg_ids: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """Scatter segment-id stamps from MASK_STAMP entries into the
+    resident row->segment lane, in place."""
+    sel, idx, flags = _stamp_rows(packed)
+    seg = (flags >> SEG_SHIFT) & SEG_FIELD_MASK
+    scatter_rows_drop(seg_ids, idx, seg, sel)
+    return seg_ids
+
+
+def reconcile_step_fleet(state: ReconcileState, seg_ids: torch.Tensor,
+                         packed: torch.Tensor, acks: torch.Tensor | None = None,
+                         patch_capacity: int = 8192, seg_capacity: int = 8,
+                         mesh=None,
+                         ) -> tuple[ReconcileState, torch.Tensor, torch.Tensor]:
+    """:func:`reconcile_step_packed` plus the resident segment lane and
+    the per-segment live-row counters on the wire tail. Out-of-range
+    segment ids (padding, unowned rows) drop out of the count."""
+    apply_seg_stamps(seg_ids, packed)
+    new_state, wire = reconcile_step_packed(state, packed, acks, patch_capacity,
+                                            mesh=mesh)
+    cap = seg_capacity
+    seg = torch.where(seg_ids < 0, seg_ids + cap, seg_ids)
+    seg = torch.where((seg >= 0) & (seg < cap), seg, cap)
+    counts = torch.zeros(cap + 1, dtype=torch.int32, device=seg_ids.device)
+    counts.index_add_(0, seg.long(), new_state.up_exists.to(torch.int32))
+    return new_state, seg_ids, torch.cat([wire, counts[:cap]])
+
+
+def unpack_seg_counts(wire: np.ndarray, patch_capacity: int, r: int, p: int,
+                      seg_capacity: int) -> np.ndarray:
+    """Host-side: the per-segment live-row counts from a fleet wire."""
+    off = PACK_HDR + patch_capacity + r * (1 + p)
+    return wire[off:off + seg_capacity]
+
+
+def unpack_patches(wire: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray, bool, np.ndarray]:
+    """Host-side: (idx, code, upsync, overflow, stats) from the wire array."""
+    count = int(wire[0])
+    entries = wire[PACK_HDR:PACK_HDR + count]
+    return (
+        entries & PACK_IDX_MASK,
+        (entries >> PACK_CODE_SHIFT) & 3,
+        (entries & PACK_UPSYNC_BIT) != 0,
+        bool(wire[1]),
+        wire[2:10],
+    )
+
+
+def unpack_placement(wire: np.ndarray, patch_capacity: int, p: int,
+                     r: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side: (dirty root row indices [N], leaf counts [N, P]) from the
+    wire's placement segment; ``r`` bounds it for fleet wires."""
+    n = int(wire[PACK_PLACEMENT_COUNT])
+    seg = wire[PACK_HDR + patch_capacity:]
+    if r is not None:
+        seg = seg[:r * (1 + p)]
+    seg = seg.reshape(-1, 1 + p)
+    return seg[:n, 0], seg[:n, 1:]
+
+
+# ---------------------------------------------------------------------------
+# Host <-> device staging
+# ---------------------------------------------------------------------------
+
+
+class WireBuffers:
+    """Double-buffered host staging for the packed-delta wire.
+
+    ``acquire`` hands out the least-recently-used (packed, acks) pair as
+    numpy views (``uint32 [d, width]`` zeroed, ``int32 [ack_capacity]``
+    filled with -1). On the card the buffers are pinned, :meth:`upload`
+    copies them without blocking and records an event, and the slot's
+    next ``acquire`` waits on that event — only if the pipeline ran ahead
+    of the copy engine (``reuse_waits`` counts those). On the CPU the
+    step reads the host buffers directly and synchronously.
+    """
+
+    def __init__(self, depth: int = 2, device: torch.device | None = None):
+        self.depth = depth
+        self.device = torch.device("cpu") if device is None else device
+        self._pin = self.device.type == "cuda"
+        self._packed: list[torch.Tensor | None] = [None] * depth
+        self._acks: list[torch.Tensor | None] = [None] * depth
+        self._pending: list = [None] * depth  # torch.cuda.Event per slot
+        self._i = 0
+        self.reuse_waits = 0
+
+    def acquire(self, d: int, width: int,
+                ack_capacity: int) -> tuple[int, np.ndarray, np.ndarray]:
+        i = self._i
+        self._i = (i + 1) % self.depth
+        ev = self._pending[i]
+        if ev is not None:
+            self._pending[i] = None
+            if not ev.query():
+                self.reuse_waits += 1
+                ev.synchronize()
+        packed = self._packed[i]
+        if packed is None or tuple(packed.shape) != (d, width):
+            packed = self._packed[i] = torch.zeros(
+                (d, width), dtype=torch.int32, pin_memory=self._pin)
+        else:
+            packed.zero_()
+        acks = self._acks[i]
+        if acks is None or tuple(acks.shape) != (ack_capacity,):
+            acks = self._acks[i] = torch.full(
+                (ack_capacity,), -1, dtype=torch.int32, pin_memory=self._pin)
+        else:
+            acks.fill_(-1)
+        return i, packed.numpy().view(np.uint32), acks.numpy()
+
+    def upload(self, slot: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The slot's (packed int32, acks) on the device."""
+        packed, acks = self._packed[slot], self._acks[slot]
+        if not self._pin:
+            return packed, acks
+        packed_d = packed.to(self.device, non_blocking=True)
+        acks_d = acks.to(self.device, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._pending[slot] = ev
+        return packed_d, acks_d
+
+
+class HostWire:
+    """A device wire on its way to the host: a non-blocking copy into
+    pinned memory plus an event (``copy_to_host_async`` in the
+    reference). ``is_ready`` polls the event; ``np.asarray`` waits."""
+
+    def __init__(self, wire: torch.Tensor):
+        if wire.device.type == "cpu":
+            self._host, self._event = wire, None
+        else:
+            self._host = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
+            self._host.copy_(wire, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def is_ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def __array__(self, dtype=None, copy=None):
+        if self._event is not None:
+            self._event.synchronize()
+        arr = self._host.numpy()
+        return arr if dtype is None else arr.astype(dtype)
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """One host array on ``device`` as a copy (uint32 as an int32 bit view)."""
+    arr = np.ascontiguousarray(np.asarray(a))
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(arr).to(device, copy=True)
+
+
+def state_from_numpy(state, device=None) -> ReconcileState:
+    """A reference ``ReconcileState`` of numpy arrays (``example_state``,
+    a bucket's host mirrors) as the port's tensors on ``device`` (default
+    the card): uint32 lanes become int32 bit views, everything is copied."""
+    dev = resolve_device(device)
+    return ReconcileState(*(to_device(a, dev) for a in state))
+
+
+def deltas_from_numpy(deltas, device=None) -> ReconcileDeltas:
+    """A numpy delta batch (``example_deltas``) as tensors on ``device``."""
+    dev = resolve_device(device)
+    return ReconcileDeltas(*(to_device(a, dev) for a in deltas))
+
+
+def wire_to_numpy(wire: torch.Tensor) -> np.ndarray:
+    """The int32 wire as host numpy (the bytes the reference's wire holds)."""
+    return wire.cpu().numpy()
+
+
+def example_state(
+    b: int = 8192, s: int = 64, r: int = 1024, p: int = 8, l: int = 8, c: int = 64,
+    seed: int = 0, dirty_frac: float = 0.01,
+) -> ReconcileState:
+    """A synthetic populated state as host numpy (the reference's
+    generator, seed for seed); :func:`state_from_numpy` moves it."""
+    rng = np.random.default_rng(seed)
+    up = rng.integers(1, 2**32, size=(b, s), dtype=np.uint32)
+    down = up.copy()
+    flip = rng.random(b) < dirty_frac
+    down[flip, :1] ^= 1
+    status_mask = np.zeros(s, bool)
+    status_mask[-max(1, s // 8):] = True
+    return ReconcileState(
+        up_vals=up,
+        up_exists=np.ones(b, bool),
+        down_vals=down,
+        down_exists=np.ones(b, bool),
+        status_mask=status_mask,
+        replicas=rng.integers(0, 100, size=r).astype(np.int32),
+        avail=rng.random((r, p)) < 0.9,
+        current=np.zeros((r, p), np.int32),
+        pair_hashes=rng.integers(1, 2**32, size=(b, l), dtype=np.uint32),
+        sel_hashes=rng.integers(1, 2**32, size=c, dtype=np.uint32),
+    )
+
+
+def example_deltas(b: int = 8192, s: int = 64, d: int = 256, seed: int = 1) -> ReconcileDeltas:
+    """A synthetic delta batch as host numpy, unique indices (the
+    apply_deltas contract)."""
+    rng = np.random.default_rng(seed)
+    return ReconcileDeltas(
+        idx=rng.permutation(b)[:d].astype(np.int32),
+        vals=rng.integers(1, 2**32, size=(d, s), dtype=np.uint32),
+        exists=np.ones(d, bool),
+        side=rng.random(d) < 0.5,
+        valid=rng.random(d) < 0.9,
+    )
+
+
+class ReconcileModel:
+    """Convenience wrapper holding the resident state and the step."""
+
+    def __init__(self, state, device=None, mesh=None):
+        _no_mesh(mesh)
+        self.device = resolve_device(device)
+        self.state = state_from_numpy(state, self.device)
+
+    def step(self, deltas) -> ReconcileOutputs:
+        if not isinstance(deltas.idx, torch.Tensor):
+            deltas = deltas_from_numpy(deltas, self.device)
+        self.state, out = reconcile_step(self.state, deltas)
+        return out

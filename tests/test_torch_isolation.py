@@ -1,0 +1,89 @@
+"""The port stands alone: it never loads JAX or any module of the JAX
+package.
+
+``tests/conftest.py`` imports JAX into every test process, so the
+runtime check drives a tiny CPU closed loop through the port's FusedCore
+in a fresh interpreter (``-I``: no user site, no PYTHONPATH hooks) and
+inspects its ``sys.modules``. A static scan of the port's sources and of
+``chip_smoke.py`` backs it up for code the loop does not reach.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "kcp_tpu_torch")
+
+_PROBE = r"""
+import asyncio, importlib, json, pkgutil, sys
+sys.path.insert(0, REPO)
+import torch
+torch.set_num_threads(1)
+import kcp_tpu_torch
+for mod in pkgutil.walk_packages(kcp_tpu_torch.__path__, "kcp_tpu_torch."):
+    importlib.import_module(mod.name)
+from kcp_tpu_torch.bench import closed_loop
+from kcp_tpu_torch.reconciler.fairqueue import make_queue
+from kcp_tpu_torch.syncer.core import FusedCore
+
+core = FusedCore(batch_window=0.0005, device="cpu")
+out = asyncio.run(closed_loop(core, 512, 16, churn=16, seconds=0.3,
+                              warmup_ticks=3))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "kcp_tpu"))
+print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
+                  "queue": type(core.controller.queue).__name__,
+                  "fair": type(make_queue("probe")).__name__,
+                  "loaded": loaded}))
+"""
+
+
+def test_port_closed_loop_loads_no_jax_and_no_reference_module():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-I", "-c", _PROBE.replace("REPO", repr(REPO))],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [], f"port loaded {res['loaded']}"
+    assert res["converged"] and res["ticks"] > 0
+    # the controller's queue is the native fair queue when the repo's
+    # library builds, else the plain one: either is the port's own class
+    assert res["queue"] in ("FairWorkQueue", "WorkQueue")
+
+
+def _sources():
+    for root, _dirs, files in os.walk(PORT):
+        for fn in files:
+            if fn.endswith(".py"):
+                yield os.path.join(root, fn)
+    yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tests", "test_torch_cuda.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_nothing_of_jax_or_the_reference(path):
+    tree = ast.parse(open(path).read(), path)
+    rel = os.path.relpath(path, REPO)
+    # how many package levels a relative import may climb and stay inside
+    # kcp_tpu_torch (a module at kcp_tpu_torch/a/b.py may use up to 2 dots)
+    depth = rel.count(os.sep) if rel.startswith("kcp_tpu_torch") else 0
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                assert node.level <= depth, f"{rel}: relative import leaves the port"
+                continue
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "kcp_tpu"), f"{rel} imports {name}"
