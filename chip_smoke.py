@@ -15,10 +15,29 @@ Phases, each fatal on failure:
    the CPU from one seeded state and wire at B=131,072, S=64 (acks with
    padding, mask and segment stamps, then an overflow tick): the wires
    must be byte-equal;
+3b. sharded kernel vs plain — ``decide_and_match_sharded`` over a
+   4-shard mesh (``"4"``) and a slot-sharded ``"2x2"`` mesh, both on
+   repeated ``cuda:0`` shards, at the serving shape, plus a ragged
+   B=131,071 over ``"4"``: exact equality with the unsharded plain
+   version, kernel time, plain time, bound and launches per call;
+4. device step vs CPU step — ``reconcile_step_fleet`` on the card and on
+   the CPU from one seeded state and wire at B=131,072, S=64 (acks with
+   padding, mask and segment stamps, then an overflow tick): the wires
+   must be byte-equal;
+4b. sharded step vs unsharded card step — the same two ticks through a
+   4-shard state on the card: byte-equal wires;
 5. main path — a closed churn loop through the port's ``FusedCore``
    (fleet batch on, pipeline "double") at 131,072 rows x 64 slots:
    every churned row must converge, the kernel's launch count must cover
-   every tick, and no step may fail or quarantine a row.
+   every tick, and no step may fail or quarantine a row;
+5b. main path, sharded — the same loop with ``FusedCore(mesh="4" over
+   cuda:0)``: every row converges, the sharded kernel launches 4 times a
+   tick, nothing is quarantined;
+5c. a short profiled loop (device busy share, top device events);
+6. engine path — ``start_syncer`` over two ``LogicalStore``s on the card,
+   without a mesh and on ``"4"``: 16,384 labelled ConfigMaps across 64
+   namespaces, then an update, a delete and a downstream status write
+   that must reach upstream; both runs must end with equal dumps.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card the script exits 2
@@ -38,6 +57,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 ALU_OPS_PER_S = 67e12  # H100 SXM non-tensor peak (float32 table rate)
 SERVING = dict(b=131072, s=64, l=1, c=8, per_row=True)
+SMOKE_SHARDS = 4  # row shards of the smoke meshes, all on cuda:0
+ENGINE_OBJECTS = 16384  # phase 6 (cut from 131,072 for the time limit)
+ENGINE_NAMESPACES = 64
 
 
 def fail(msg: str) -> None:
@@ -84,11 +106,14 @@ def kernel_case(rng, b, s, l, c, per_row, torch, dev):
     return tuple(t(a) for a in (up, upe, down, dne, mask, pair, sel))
 
 
-def bound(case, outs) -> tuple[float, str, int]:
+def bound(case, outs, shards: int = 1) -> tuple[float, str, int]:
     """Least time for the call: bytes (each input read once, each output
-    written once) over the HBM rate vs operations over the ALU rate."""
+    written once) over the HBM rate vs operations over the ALU rate. A
+    sharded call also reads the replicated selectors and writes a [C]
+    partial count once per shard."""
     up, _upe, _down, _dne, _mask, pair, sel = case
     nbytes = sum(x.numel() * x.element_size() for x in (*case, *outs))
+    nbytes += (shards - 1) * 2 * sel.numel() * sel.element_size()
     b, s = up.shape
     ops = 3 * b * s + 2 * b * pair.shape[1] * sel.shape[0]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
@@ -161,6 +186,246 @@ def step_case(rng, b, s, d, torch):
     return state, seg, packed, acks
 
 
+def smoke_mesh(spec: str, dev):
+    """A smoke mesh: ``spec`` over ``dev`` repeated (every shard its own
+    allocation on the one card)."""
+    from kcp_tpu_torch.parallel.mesh import mesh_from_spec
+
+    return mesh_from_spec(spec, devices=[dev] * SMOKE_SHARDS)
+
+
+def sharded_kernel_phase(rng, torch, dev, card: str) -> dict:
+    """3b. decide_and_match_sharded against the unsharded plain version;
+    returns the record of the serving shape over "4"."""
+    from kcp_tpu_torch.ops.cuda_kernels import (
+        decide_and_match,
+        decide_and_match_plain,
+        decide_and_match_sharded,
+    )
+    from kcp_tpu_torch.parallel import mesh as pm
+
+    record = None
+    for label, spec, sh in (("serving", "4", SERVING), ("serving", "2x2", SERVING),
+                            ("ragged", "4", dict(SERVING, b=131071))):
+        mesh = smoke_mesh(spec, dev)
+        rf = pm.row_factor(mesh)
+        case = kernel_case(rng, sh["b"], sh["s"], sh["l"], sh["c"], sh["per_row"], torch, dev)
+        layouts = (pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.REPLICATED)
+        args = [pm.ShardedTensor.put(x, mesh, lay) for x, lay in zip(case, layouts)]
+        before = decide_and_match_sharded.launches
+        dec, ups, counts = decide_and_match_sharded(mesh, *args)
+        torch.cuda.synchronize()
+        per_call = decide_and_match_sharded.launches - before
+        if dev.type == "cuda" and per_call != rf:
+            fail(f"sharded {label} over {spec}: {per_call} launches for {rf} row shards")
+        got = (dec.full(), ups.full(), counts)
+        want = decide_and_match_plain(*case)
+        err = 0
+        for name, g, w in zip(("decision", "upsync", "counts"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"sharded {label} over {spec}: {name} is {g.dtype}{tuple(g.shape)}, "
+                     f"plain {w.dtype}{tuple(w.shape)}")
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+        if err:
+            fail(f"sharded {label} over {spec}: differs from the plain version "
+                 f"(max abs err {err})")
+        if int(want[0].ne(0).sum()) == 0 or int(want[2].sum()) == 0:
+            fail(f"sharded {label} over {spec}: vacuous case")
+        call_ms = time_ms(lambda: decide_and_match_sharded(mesh, *args), torch, 30)
+        one_ms = time_ms(lambda: decide_and_match(*case), torch, 30)
+        plain_ms = time_ms(lambda: decide_and_match_plain(*case), torch, 10)
+        _wall, ev = device_profile(
+            lambda: [decide_and_match_sharded(mesh, *args) for _ in range(20)], torch)
+        dev_us = [us / 20 for k, (_n, us) in ev.items() if "decide_match_kernel" in k]
+        ms = dev_us[0] / 1e3 if dev_us else call_ms
+        bound_ms, bound_by, nbytes = bound(case, want, shards=rf)
+        print(f"kernel decide_and_match_sharded [{label}: B={sh['b']} S={sh['s']} mask=row "
+              f"L={sh['l']} C={sh['c']}, mesh {spec} on {rf} row shards x "
+              f"{pm.slot_factor(mesh)} slot shards of {dev}]: equal (tolerance: exact); "
+              f"{per_call} launches per call; kernel {ms:.4f} ms on the device per call "
+              f"({'profiler, sum of the shards' if dev_us else 'events: profiler saw no device time'}), "
+              f"{call_ms:.4f} ms per back-to-back call (events; unsharded kernel "
+              f"{one_ms:.4f} ms in this run), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {bound_ms / ms * 100:.1f}% of "
+              f"the bound rate); library call: none [{card}]")
+        if label == "serving" and spec == "4":
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        torch.cuda.synchronize()
+    return record
+
+
+def sharded_step_phase(torch, dev, card: str, b: int = 131072, s: int = 64) -> None:
+    """4b. reconcile_step_fleet over a 4-shard state against the unsharded
+    step on the same card: byte-equal wires, the phase-4 ticks."""
+    from kcp_tpu_torch.models import reconcile_model as tm
+    from kcp_tpu_torch.parallel.mesh import FLAGS, ShardedTensor, shard_state
+
+    mesh = smoke_mesh("4", dev)
+    state, seg, packed, acks = step_case(np.random.default_rng(7), b, s, 1024, torch)
+    one = [tm.state_from_numpy(state, dev), tm.to_device(seg, dev)]
+    sh = [shard_state(state, mesh), ShardedTensor.put(tm.to_device(seg, dev), mesh, FLAGS)]
+    for tick, cap in enumerate((8192, 256)):
+        if tick:
+            _st, _sg, packed, acks = step_case(np.random.default_rng(8), b, s, 1024, torch)
+        outs = []
+        for side, kw in ((one, {}), (sh, {"mesh": mesh})):
+            side[0], side[1], wire = tm.reconcile_step_fleet(
+                side[0], side[1], tm.to_device(packed, dev), tm.to_device(acks, dev),
+                patch_capacity=cap, seg_capacity=8, **kw)
+            outs.append(tm.wire_to_numpy(wire))
+        torch.cuda.synchronize()
+        if outs[0].tobytes() != outs[1].tobytes():
+            diff = np.flatnonzero(outs[0] != outs[1])
+            fail(f"sharded step tick {tick}: wire != unsharded wire at {diff[:10].tolist()}")
+        if bool(outs[0][1]) != (cap == 256):
+            fail(f"sharded step tick {tick}: overflow flag {bool(outs[0][1])} at "
+                 f"capacity {cap}")
+
+    def step(side, **kw):
+        side[0], side[1], _w = tm.reconcile_step_fleet(
+            side[0], side[1], tm.to_device(packed, dev), tm.to_device(acks, dev),
+            patch_capacity=8192, seg_capacity=8, **kw)
+
+    one_ms = time_ms(lambda: step(one), torch, 20)
+    sh_ms = time_ms(lambda: step(sh, mesh=mesh), torch, 20)
+    print(f"sharded step: reconcile_step_fleet over mesh 4 ({SMOKE_SHARDS} row shards of "
+          f"{dev}) wire == unsharded card wire, 2 ticks at B={b} S={s} (acks, mask+segment "
+          f"stamps, overflow tick); device step {sh_ms:.4f} ms sharded vs {one_ms:.4f} ms "
+          f"unsharded, incl. upload [{card}]")
+
+
+def main_path_phase(core, torch, counter, per_tick: int, card: str, label: str,
+                    rows: int = 131072, seconds: float = 10.0) -> tuple[dict, int]:
+    """5 / 5b. One closed churn loop through ``core``; the kernel's launch
+    count (``counter.launches``, zeroed just before) must be ``per_tick``
+    per fleet tick. Returns the loop's readings and the launches."""
+    from kcp_tpu_torch.bench import closed_loop
+    from kcp_tpu_torch.utils.trace import REGISTRY
+
+    if not core.fleet_mode or core.pipeline != "double":
+        fail(f"{label}: defaults changed: fleet={core.fleet_mode} pipeline={core.pipeline}")
+    fail0 = REGISTRY.counter("fused_step_failures_total").value
+    quar0 = REGISTRY.counter("quarantined_rows").value
+    counter.launches = 0
+    out = asyncio.run(closed_loop(core, rows, 64, churn=768, seconds=seconds,
+                                  warmup_ticks=24))
+    torch.cuda.synchronize()
+    launches = counter.launches
+    ticks_all = core._fleet.stats["ticks"]
+    if not out["converged"]:
+        fail(f"{label}: rows left unconverged after stop()")
+    if REGISTRY.counter("fused_step_failures_total").value != fail0:
+        fail(f"{label}: fused step failures")
+    if REGISTRY.counter("quarantined_rows").value != quar0:
+        fail(f"{label}: rows quarantined")
+    if core.device.type == "cuda" and (launches != per_tick * ticks_all or launches == 0):
+        fail(f"{label}: {launches} kernel launches for {ticks_all} ticks "
+             f"(want {per_tick} per tick)")
+    print(f"{label}: FusedCore fleet/double, rows={out['rows']} slots={out['slots']} "
+          f"tenants~{out['rows'] // 13} churn/tick={out['churn_per_tick']}: "
+          f"{out['ticks']} ticks in {out['seconds']:.2f} s ({out['ms_per_tick']:.3f} "
+          f"ms/tick), reconciles/s {out['reconciles_per_s']:.0f}, convergence p50 "
+          f"{out['convergence_p50_ms']:.3f} ms p99 {out['convergence_p99_ms']:.3f} ms, "
+          f"patch rows/tick {out['patch_rows_per_tick']:.1f}, warmup "
+          f"{out['warmup_ticks']} ticks in {out['warmup_s']:.2f} s; kernel launches "
+          f"{launches} for {ticks_all} ticks; all rows converged; work queue "
+          f"{type(core.controller.queue).__name__} [{card}]")
+    return out, launches
+
+
+def _cm(name: str, ns: str, data: dict) -> dict:
+    from kcp_tpu_torch.syncer.engine import CLUSTER_LABEL
+
+    return {"apiVersion": "v1", "kind": "ConfigMap",
+            "metadata": {"name": name, "namespace": ns, "labels": {CLUSTER_LABEL: "c1"}},
+            "data": data}
+
+
+async def _eventually(pred, what: str, timeout: float) -> None:
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            if pred():
+                return
+        except Exception:  # noqa: BLE001 — not there yet
+            pass
+        if time.perf_counter() > deadline:
+            fail(f"engine path: {what} not reached in {timeout:.0f} s")
+        await asyncio.sleep(0.05)
+
+
+async def engine_run(dev, mesh, n: int, n_ns: int) -> tuple[dict, dict, dict]:
+    """6. One sync scenario through ``start_syncer`` over two stores
+    (test_mesh_serving.drive_scenario at ``n`` objects): final
+    downstream dump, upstream statuses, and timings."""
+    from kcp_tpu_torch.client import Client
+    from kcp_tpu_torch.store import LogicalStore
+    from kcp_tpu_torch.syncer import start_syncer
+
+    up, down = Client(LogicalStore(), "t"), Client(LogicalStore(), "p")
+    t0 = time.perf_counter()
+    syncer = await start_syncer(up, down, ["configmaps"], "c1", mesh=mesh, device=dev)
+    for i in range(n):
+        up.create("configmaps", _cm(f"cm-{i}", f"ns-{i % n_ns}", {"v": str(i)}))
+    t_created = time.perf_counter()
+    await _eventually(lambda: len(down.list("configmaps")[0]) == n, "initial sync", 600)
+    t_synced = time.perf_counter()
+    obj = up.get("configmaps", "cm-3", "ns-3")
+    obj["data"] = {"v": "updated"}
+    up.update("configmaps", obj)
+    up.delete("configmaps", "cm-7", "ns-7")
+    await _eventually(lambda: down.get("configmaps", "cm-3", "ns-3")["data"]
+                      == {"v": "updated"}, "update downsync", 120)
+    await _eventually(lambda: len(down.list("configmaps")[0]) == n - 1, "delete", 120)
+    dobj = down.get("configmaps", "cm-5", "ns-5")
+    dobj["status"] = {"ready": True}
+    down.update_status("configmaps", dobj)
+    await _eventually(lambda: up.get("configmaps", "cm-5", "ns-5").get("status")
+                      == {"ready": True}, "status upsync", 120)
+    t_done = time.perf_counter()
+    eng = syncer.engines[0]
+    state = eng.core._fleet._state
+    sharded = type(state.up_vals).__name__
+    dump = {f"{o['metadata']['namespace']}/{o['metadata']['name']}": (o["data"], o.get("status"))
+            for o in down.list("configmaps")[0]}
+    up_status = {f"{o['metadata']['namespace']}/{o['metadata']['name']}": o.get("status")
+                 for o in up.list("configmaps")[0]}
+    ticks = eng._section.bucket.stats["ticks"]
+    await syncer.stop()
+    return dump, up_status, dict(create_s=t_created - t0, sync_s=t_synced - t0,
+                                 scenario_s=t_done - t_synced, ticks=ticks, state=sharded)
+
+
+def engine_phase(torch, dev, card: str, n: int = ENGINE_OBJECTS,
+                 n_ns: int = ENGINE_NAMESPACES) -> None:
+    """6. start_syncer on the card, without a mesh and on "4": equal
+    dumps, and each run went through its kernel."""
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match, decide_and_match_sharded
+
+    runs = []
+    for spec, counter, per in ((None, decide_and_match, 1),
+                               ("4", decide_and_match_sharded, SMOKE_SHARDS)):
+        mesh = None if spec is None else smoke_mesh(spec, dev)
+        counter.launches = 0
+        dump, up_status, t = asyncio.run(engine_run(dev, mesh, n, n_ns))
+        torch.cuda.synchronize()
+        launches = counter.launches
+        if dev.type == "cuda" and (launches == 0 or launches % per):
+            fail(f"engine path (mesh {spec}): {launches} kernel launches")
+        if len(dump) != n - 1 or up_status.get("ns-5/cm-5") != {"ready": True}:
+            fail(f"engine path (mesh {spec}): wrong final state")
+        runs.append((dump, up_status))
+        print(f"engine path: start_syncer mesh={spec or 'none'} on {dev}: {n} ConfigMaps in "
+              f"{n_ns} namespaces created in {t['create_s']:.2f} s, all synced "
+              f"{t['sync_s']:.2f} s after start; update + delete + status upsync converged "
+              f"in {t['scenario_s']:.2f} s; {t['ticks']} ticks, resident state "
+              f"{t['state']}, kernel launches {launches} [{card}]")
+    if runs[0] != runs[1]:
+        fail("engine path: the sharded run's dumps differ from the unsharded run's")
+    print(f"engine path: final dumps equal with and without the mesh ({n - 1} objects)")
+
+
 def main() -> None:
     import torch
 
@@ -170,7 +435,11 @@ def main() -> None:
     from kcp_tpu_torch.bench import closed_loop
     from kcp_tpu_torch.models import reconcile_model as tm
     from kcp_tpu_torch.ops import cuda_kernels
-    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match, decide_and_match_plain
+    from kcp_tpu_torch.ops.cuda_kernels import (
+        decide_and_match,
+        decide_and_match_plain,
+        decide_and_match_sharded,
+    )
     from kcp_tpu_torch.syncer.core import FusedCore
     from kcp_tpu_torch.utils.trace import REGISTRY
 
@@ -249,6 +518,9 @@ def main() -> None:
                           bound_ms=bound_ms, bound_by=bound_by)
         torch.cuda.synchronize()
 
+    # ---- 3b. the sharded kernel against the plain version
+    record_sharded = sharded_kernel_phase(rng, torch, dev, card)
+
     # ---- 4. device step vs CPU step, byte-equal wires
     b, s = 131072, 64
     state, seg, packed, acks = step_case(np.random.default_rng(7), b, s, 1024, torch)
@@ -277,43 +549,26 @@ def main() -> None:
           f"incl. upload [{card}]")
     del gpu, cpu
 
+    # ---- 4b. sharded step vs unsharded card step, byte-equal wires
+    sharded_step_phase(torch, dev, card, b, s)
+
     # ---- 5. main path: closed loop through FusedCore, fleet on, double
     core = FusedCore(batch_window=0.0005)
-    if not core.fleet_mode or core.pipeline != "double":
-        fail(f"defaults changed: fleet={core.fleet_mode} pipeline={core.pipeline}")
-    fail0 = REGISTRY.counter("fused_step_failures_total").value
-    quar0 = REGISTRY.counter("quarantined_rows").value
-    decide_and_match.launches = 0
-    out = asyncio.run(closed_loop(core, 131072, 64, churn=768, seconds=10.0,
-                                  warmup_ticks=24))
-    torch.cuda.synchronize()
-    launches = decide_and_match.launches
-    ticks_all = core._fleet.stats["ticks"]
-    if not out["converged"]:
-        fail("main path: rows left unconverged after stop()")
-    if REGISTRY.counter("fused_step_failures_total").value != fail0:
-        fail("main path: fused step failures")
-    if REGISTRY.counter("quarantined_rows").value != quar0:
-        fail("main path: rows quarantined")
-    if launches < ticks_all or launches == 0:
-        fail(f"main path: {launches} kernel launches for {ticks_all} ticks")
+    _out, launches = main_path_phase(core, torch, decide_and_match, 1, card, "main path")
     snap = REGISTRY.snapshot()
     phases = " ".join(
         f"{k[6:-8]}={v['mean'] * 1e3:.3f}ms" for k, v in sorted(snap.items())
         if k.startswith("fused_") and k.endswith("_seconds") and isinstance(v, dict)
         and v["count"])
-    print(f"main path: FusedCore fleet/double, rows={out['rows']} slots={out['slots']} "
-          f"tenants~{out['rows'] // 13} churn/tick={out['churn_per_tick']}: "
-          f"{out['ticks']} ticks in {out['seconds']:.2f} s ({out['ms_per_tick']:.3f} "
-          f"ms/tick), reconciles/s {out['reconciles_per_s']:.0f}, convergence p50 "
-          f"{out['convergence_p50_ms']:.3f} ms p99 {out['convergence_p99_ms']:.3f} ms, "
-          f"patch rows/tick {out['patch_rows_per_tick']:.1f}, warmup "
-          f"{out['warmup_ticks']} ticks in {out['warmup_s']:.2f} s; kernel launches "
-          f"{launches} for {ticks_all} ticks; all rows converged; work queue "
-          f"{type(core.controller.queue).__name__} [{card}]")
     print(f"tick phases (mean): {phases}")
 
-    # ---- 5b. where the device time goes: a short profiled closed loop
+    # ---- 5b. the main path, sharded: FusedCore over mesh "4" on the card
+    sharded_core = FusedCore(mesh=smoke_mesh("4", dev), batch_window=0.0005)
+    _out_s, launches_sharded = main_path_phase(
+        sharded_core, torch, decide_and_match_sharded, SMOKE_SHARDS, card,
+        "main path, sharded (mesh 4)")
+
+    # ---- 5c. where the device time goes: a short profiled closed loop
     #          (after the counts above were read; not part of the record)
     prof_core = FusedCore(batch_window=0.0005)
     prof_out = {}
@@ -329,15 +584,23 @@ def main() -> None:
               + f" [{card}]")
     else:
         print("profiled loop: the profiler saw no device time: busy share not measured")
+
+    # ---- 6. the engine path: start_syncer over two LogicalStores
+    engine_phase(torch, dev, card)
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     record.update(name="decide_and_match", route="cuda",
                   source="kcp_tpu_torch/csrc/decide_match.cu",
                   replaces="kcp_tpu/ops/pallas_kernels.py:129", launches=launches,
                   library_ms=None)
+    record_sharded.update(name="decide_and_match_sharded", route="cuda",
+                          source="kcp_tpu_torch/csrc/decide_match.cu",
+                          replaces="kcp_tpu/ops/pallas_kernels.py:223",
+                          launches=launches_sharded, library_ms=None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in (record, record_sharded)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

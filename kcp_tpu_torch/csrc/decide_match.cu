@@ -33,9 +33,13 @@
 //   - a lane of the group owns a fixed set of selectors (c = lane, lane+G,
 //     ...), counts its hits in registers over every row the block visits,
 //     and folds them into a per-block shared [C] histogram; the block then
-//     atomicAdds its non-zero counts into the global [C] (zeroed by the
-//     wrapper). Integer atomics are exact in any order, so the kernel and
-//     the plain PyTorch version agree bit for bit;
+//     atomicAdds its non-zero counts into the global [C]. The kernel only
+//     ever adds into counts: the unsharded wrapper zeroes them first, and
+//     the sharded wrapper (decide_and_match_sharded, which replaces the
+//     shard_map + psum of pallas_kernels.py:223) hands one zeroed buffer
+//     to every row shard on a device, so that buffer accumulates the
+//     shards' counts. Integer atomics are exact in any order, so the
+//     kernel and the plain PyTorch version agree bit for bit;
 //   - a grid-stride loop over row tiles with a grid of at most 8 blocks per
 //     SM keeps the global atomics to ~8k per call.
 // Plain C entry point, built with nvcc and loaded with ctypes (see

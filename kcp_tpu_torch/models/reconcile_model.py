@@ -13,6 +13,15 @@ tensors:
 Lanes 2 and 4 always go through ``decide_and_match``: the hand-written
 CUDA kernel on the card, its plain PyTorch version on the CPU.
 
+On a mesh (``mesh=``) the state is a ReconcileState of
+:class:`~kcp_tpu_torch.parallel.mesh.ShardedTensor` (``shard_state``):
+the wire is unpacked once on the mesh's lead device, each row shard
+applies the entries whose rows it owns (drop-mode scatters drop the rest)
+and runs the kernel and the placement lane over its own rows on its own
+device, and the quantities that cross shards — match counts, stats,
+per-segment counts, patch and placement compaction — are reduced on the
+lead device. The wire is byte-equal to the unsharded step's.
+
 Where the reference donates its state to a jitted step, this port
 updates the resident mirrors IN PLACE: ``up_vals``/``up_exists``/
 ``down_vals``/``down_exists``, a per-row ``status_mask`` and the fleet's
@@ -30,9 +39,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.cuda_kernels import decide_and_match
-from ..ops.diff import apply_deltas, compact_patches, first_true, scatter_rows_drop
+from ..ops.cuda_kernels import decide_and_match, decide_and_match_shards
+from ..ops.diff import (
+    DECISION_NOOP,
+    apply_deltas,
+    compact_patches,
+    first_true,
+    scatter_rows_drop,
+)
 from ..ops.placement import placement_changed, split_replicas
+from ..parallel.mesh import FLAGS, ShardedTensor, row_factor, shard_state
 from ..utils.device import resolve_device
 
 
@@ -88,19 +104,23 @@ STATS_FIELDS = (
 )
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "kcp_tpu_torch runs on one device; multi-device serving (mesh=) "
-            "is not ported yet")
+def _sharded(state: ReconcileState, mesh) -> None:
+    if not isinstance(state.up_vals, ShardedTensor) or state.up_vals.mesh != mesh:
+        raise TypeError("a step with mesh= takes a state sharded over that mesh "
+                        "(parallel.mesh.shard_state)")
 
 
 def reconcile_step(state: ReconcileState, deltas: ReconcileDeltas,
                    patch_capacity: int = 8192, mesh=None,
                    ) -> tuple[ReconcileState, ReconcileOutputs]:
     """One fused step. Updates the state's mirrors in place (see the
-    module docstring) and returns (new state, outputs)."""
-    _no_mesh(mesh)
+    module docstring) and returns (new state, outputs). With ``mesh=``
+    the state is sharded and the full lanes of the outputs come back
+    whole on the mesh's lead device."""
+    if mesh is not None:
+        _sharded(state, mesh)
+        sh = _step_sharded(state, deltas, patch_capacity)
+        return sh.state, sh.outputs()
     i32 = torch.int32
     # 1. scatter deltas, routed by side (apply_deltas owns the padding-
     #    drop and unique-index contract)
@@ -236,14 +256,17 @@ def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
     ``acks`` is the converged-row compression lane: int32 row indices
     (negative = padding) whose downstream mirror becomes a copy of the
     resident upstream mirror; the copy runs before the delta scatter."""
-    _no_mesh(mesh)
     b = state.up_vals.shape[0]
     if b > PACK_IDX_MASK + 1:
         raise ValueError(
             f"packed patch entries hold 20-bit row indices; B={b} exceeds "
             f"{PACK_IDX_MASK + 1} — shard the bucket or use the unpacked "
             f"ReconcileOutputs lanes")
-    i32 = torch.int32
+    if mesh is not None:
+        _sharded(state, mesh)
+        sh = _step_sharded(state, unpack_deltas(packed.to(mesh.lead)),
+                           patch_capacity, packed=packed, acks=acks)
+        return sh.state, sh.wire()
     if acks is not None and b > 0:
         # padding (-1) must not scatter AT ALL: scatter_rows_drop routes
         # it to a no-op write instead of clipping it onto row 0
@@ -253,27 +276,32 @@ def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
         scatter_rows_drop(state.down_exists, acks, state.up_exists[gather], valid)
     apply_mask_stamps(state.status_mask, packed)
     new_state, out = reconcile_step(state, unpack_deltas(packed), patch_capacity)
-    upsync_bit = torch.where(out.patch_upsync, PACK_UPSYNC_BIT, 0).to(i32)
-    entries = (out.patch_idx
-               | (out.patch_code.to(i32) << PACK_CODE_SHIFT)
-               | upsync_bit)
+    return new_state, _pack_wire(out.patch_idx, out.patch_code, out.patch_upsync,
+                                 out.patch_count, out.patch_overflow, out.stats,
+                                 out.placement_dirty, out.leaf_replicas)
+
+
+def _pack_wire(patch_idx, patch_code, patch_upsync, patch_count, patch_overflow,
+               stats, dirty, leaf) -> torch.Tensor:
+    """The int32 wire from the step's compact lanes (layout above)."""
+    i32 = torch.int32
+    upsync_bit = torch.where(patch_upsync, PACK_UPSYNC_BIT, 0).to(i32)
+    entries = patch_idx | (patch_code.to(i32) << PACK_CODE_SHIFT) | upsync_bit
     # placement segment: dirty roots compacted first, each carrying its
     # P leaf counts (the deployment splitter's serving lane)
-    r = state.replicas.shape[0]
-    dirty = out.placement_dirty
+    r = dirty.shape[0]
     pidx = first_true(dirty, r)
     safe = pidx.clamp(max=r - 1).long()
-    counts = torch.where((pidx < r)[:, None], out.leaf_replicas[safe], 0).to(i32)
+    counts = torch.where((pidx < r)[:, None], leaf[safe], 0).to(i32)
     pl_entries = torch.cat([pidx[:, None], counts], dim=1).reshape(-1)
-    dev = packed.device
     hdr = torch.cat([
-        out.patch_count.view(1),
-        out.patch_overflow.to(i32).view(1),
-        out.stats,
+        patch_count.view(1),
+        patch_overflow.to(i32).view(1),
+        stats,
         dirty.sum(dtype=i32).view(1),
-        torch.zeros(PACK_HDR - 11, dtype=i32, device=dev),
+        torch.zeros(PACK_HDR - 11, dtype=i32, device=stats.device),
     ])
-    return new_state, torch.cat([hdr, entries, pl_entries])
+    return torch.cat([hdr, entries, pl_entries])
 
 
 # ---------------------------------------------------------------------------
@@ -307,10 +335,17 @@ def reconcile_step_fleet(state: ReconcileState, seg_ids: torch.Tensor,
                          ) -> tuple[ReconcileState, torch.Tensor, torch.Tensor]:
     """:func:`reconcile_step_packed` plus the resident segment lane and
     the per-segment live-row counters on the wire tail. Out-of-range
-    segment ids (padding, unowned rows) drop out of the count."""
+    segment ids (padding, unowned rows) drop out of the count. With
+    ``mesh=``, ``seg_ids`` is a row-sharded ShardedTensor like the
+    state's flags."""
+    if mesh is not None:
+        _sharded(state, mesh)
+        sh = _step_sharded(state, unpack_deltas(packed.to(mesh.lead)),
+                           patch_capacity, packed=packed, acks=acks,
+                           seg_ids=seg_ids, seg_capacity=seg_capacity)
+        return sh.state, seg_ids, torch.cat([sh.wire(), sh.seg_counts])
     apply_seg_stamps(seg_ids, packed)
-    new_state, wire = reconcile_step_packed(state, packed, acks, patch_capacity,
-                                            mesh=mesh)
+    new_state, wire = reconcile_step_packed(state, packed, acks, patch_capacity)
     cap = seg_capacity
     seg = torch.where(seg_ids < 0, seg_ids + cap, seg_ids)
     seg = torch.where((seg >= 0) & (seg < cap), seg, cap)
@@ -410,7 +445,7 @@ class WireBuffers:
         packed_d = packed.to(self.device, non_blocking=True)
         acks_d = acks.to(self.device, non_blocking=True)
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(self.device))
         self._pending[slot] = ev
         return packed_d, acks_d
 
@@ -418,23 +453,32 @@ class WireBuffers:
 class HostWire:
     """A device wire on its way to the host: a non-blocking copy into
     pinned memory plus an event (``copy_to_host_async`` in the
-    reference). ``is_ready`` polls the event; ``np.asarray`` waits."""
+    reference). On a mesh, ``devices`` are the shard devices: an event on
+    each of their streams marks the whole sharded step done. ``is_ready``
+    polls the events; ``np.asarray`` waits on them."""
 
-    def __init__(self, wire: torch.Tensor):
+    def __init__(self, wire: torch.Tensor, devices=()):
+        self._events = []
         if wire.device.type == "cpu":
-            self._host, self._event = wire, None
+            self._host = wire
         else:
             self._host = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
             self._host.copy_(wire, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(wire.device))
+            self._events.append(ev)
+        for dev in devices:
+            if dev.type == "cuda" and dev != wire.device:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                self._events.append(ev)
 
     def is_ready(self) -> bool:
-        return self._event is None or self._event.query()
+        return all(ev.query() for ev in self._events)
 
     def __array__(self, dtype=None, copy=None):
-        if self._event is not None:
-            self._event.synchronize()
+        for ev in self._events:
+            ev.synchronize()
         arr = self._host.numpy()
         return arr if dtype is None else arr.astype(dtype)
 
@@ -510,12 +554,191 @@ class ReconcileModel:
     """Convenience wrapper holding the resident state and the step."""
 
     def __init__(self, state, device=None, mesh=None):
-        _no_mesh(mesh)
-        self.device = resolve_device(device)
-        self.state = state_from_numpy(state, self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.lead
+            self.state = shard_state(state, mesh)
+        else:
+            self.device = resolve_device(device)
+            self.state = state_from_numpy(state, self.device)
 
     def step(self, deltas) -> ReconcileOutputs:
         if not isinstance(deltas.idx, torch.Tensor):
             deltas = deltas_from_numpy(deltas, self.device)
-        self.state, out = reconcile_step(self.state, deltas)
+        self.state, out = reconcile_step(self.state, deltas, mesh=self.mesh)
         return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded step. Row-local work runs per row shard on its device; what
+# crosses shards is reduced on the mesh's lead device.
+# ---------------------------------------------------------------------------
+
+
+def _localize(idx: torch.Tensor, valid: torch.Tensor, lo: int, n: int,
+              b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Global row indices -> (this shard's local indices, entries that
+    land in it). Negative indices count from the end of the whole B
+    first, as the unsharded scatter normalizes them."""
+    idx = idx.to(torch.int32)
+    loc = torch.where(idx < 0, idx + b, idx) - lo
+    return loc, valid & (loc >= 0) & (loc < n)
+
+
+class _Sharded(NamedTuple):
+    """What one sharded step leaves on the lead device (and per shard)."""
+
+    state: ReconcileState
+    patch_idx: torch.Tensor
+    patch_code: torch.Tensor
+    patch_upsync: torch.Tensor
+    patch_count: torch.Tensor
+    patch_overflow: torch.Tensor
+    stats: torch.Tensor
+    decisions: list  # per row shard, on its device
+    upsyncs: list
+    leaf: torch.Tensor  # whole [R, P] on the lead
+    dirty: torch.Tensor  # whole [R] on the lead
+    match_counts: torch.Tensor
+    seg_counts: torch.Tensor | None
+
+    def wire(self) -> torch.Tensor:
+        return _pack_wire(self.patch_idx, self.patch_code, self.patch_upsync,
+                          self.patch_count, self.patch_overflow, self.stats,
+                          self.dirty, self.leaf)
+
+    def outputs(self) -> ReconcileOutputs:
+        lead = self.stats.device
+        return ReconcileOutputs(
+            patch_idx=self.patch_idx, patch_code=self.patch_code,
+            patch_upsync=self.patch_upsync, patch_count=self.patch_count,
+            patch_overflow=self.patch_overflow, stats=self.stats,
+            decision=torch.cat([d.to(lead) for d in self.decisions]),
+            status_upsync=torch.cat([u.to(lead) for u in self.upsyncs]),
+            leaf_replicas=self.leaf, placement_dirty=self.dirty,
+            match_counts=self.match_counts)
+
+
+def _step_sharded(state: ReconcileState, deltas: ReconcileDeltas,
+                  patch_capacity: int, packed: torch.Tensor | None = None,
+                  acks: torch.Tensor | None = None,
+                  seg_ids: ShardedTensor | None = None,
+                  seg_capacity: int = 8) -> _Sharded:
+    """The step over a sharded state, in the unsharded step's order per
+    shard: segment stamps, acks copy, mask stamps, delta scatter, kernel,
+    placement, local compaction. Updates every shard in place.
+
+    Rows split unevenly when B does not divide by the row factor
+    (``parallel.mesh.row_bounds``): the step never pads, so any B gives
+    the unsharded answer."""
+    mesh = state.up_vals.mesh
+    lead = mesh.lead
+    i32 = torch.int32
+    b, s = state.up_vals.shape
+    k = patch_capacity
+    per_row = state.status_mask.ndim == 2
+    n_valid = deltas.valid.sum(dtype=i32)
+    kernel_in, currents = [], []
+    for i in range(row_factor(mesh)):
+        lo, hi = state.up_vals.bounds[i]
+        n = hi - lo
+        dev = mesh.grid[i][0]
+        up = state.up_vals.row_block(i)
+        down = state.down_vals.row_block(i)
+        mask = state.status_mask.row_block(i)
+        up_ex = state.up_exists.blocks[i][0]
+        down_ex = state.down_exists.blocks[i][0]
+        if n:
+            d = ReconcileDeltas(*(t.to(dev) for t in deltas))
+            if packed is not None:
+                pk = packed.to(dev)
+                sel, idx, flags = _stamp_rows(pk)
+                loc, ok = _localize(idx, sel, lo, n, b)
+                if seg_ids is not None:
+                    scatter_rows_drop(seg_ids.blocks[i][0], loc,
+                                      (flags >> SEG_SHIFT) & SEG_FIELD_MASK, ok)
+                if acks is not None:
+                    ak = acks.to(dev)
+                    aloc, aok = _localize(ak, (ak >= 0) & (ak < b), lo, n, b)
+                    gather = aloc.clamp(0, n - 1).long()
+                    scatter_rows_drop(down, aloc, up[gather], aok)
+                    scatter_rows_drop(down_ex, aloc, up_ex[gather], aok)
+                if per_row:
+                    scatter_rows_drop(mask, loc, pk[:, :s] != 0, ok)
+            loc, ok = _localize(d.idx, d.valid & ~d.side, lo, n, b)
+            apply_deltas(up, up_ex, loc, d.vals, d.exists, ok)
+            loc, ok = _localize(d.idx, d.valid & d.side, lo, n, b)
+            apply_deltas(down, down_ex, loc, d.vals, d.exists, ok)
+            # gathered slot columns go back to their shards
+            state.up_vals.write_row_block(i, up)
+            state.down_vals.write_row_block(i, down)
+            if per_row:
+                state.status_mask.write_row_block(i, mask)
+        kernel_in.append((up, up_ex, down, down_ex, mask,
+                          state.pair_hashes.blocks[i][0],
+                          state.sel_hashes.blocks[i][0]))
+    decisions, upsyncs, match_counts = decide_and_match_shards(kernel_in, lead)
+
+    cand_idx, cand_code, cand_up, sums, leaves, dirties, segs = [], [], [], [], [], [], []
+    for i, (dec, ups) in enumerate(zip(decisions, upsyncs)):
+        lo, hi = state.up_vals.bounds[i]
+        n = hi - lo
+        up_ex = kernel_in[i][1]
+        # placement lane over this shard's roots
+        leaf = split_replicas(state.replicas.blocks[i][0], state.avail.blocks[i][0])
+        currents.append([leaf])
+        leaves.append(leaf.to(lead))
+        dirties.append(placement_changed(state.current.blocks[i][0], leaf).to(lead))
+        act = (dec != DECISION_NOOP) | ups
+        sums.append(torch.stack([
+            up_ex.sum(dtype=i32), (dec == 1).sum(dtype=i32),
+            (dec == 2).sum(dtype=i32), (dec == 3).sum(dtype=i32),
+            ups.sum(dtype=i32), act.sum(dtype=i32)]).to(lead))
+        if seg_ids is not None:
+            cap = seg_capacity
+            seg = seg_ids.blocks[i][0]
+            seg = torch.where(seg < 0, seg + cap, seg)
+            seg = torch.where((seg >= 0) & (seg < cap), seg, cap)
+            cnt = torch.zeros(cap + 1, dtype=i32, device=seg.device)
+            cnt.index_add_(0, seg.long(), up_ex.to(i32))
+            segs.append(cnt[:cap].to(lead))
+        if n == 0:
+            continue
+        # this shard's first min(K, n) actionable rows, in row order
+        kk = min(k, n)
+        pos = first_true(act, kk)
+        valid = pos < n
+        safe = pos.clamp(max=n - 1).long()
+        cand_idx.append(torch.where(valid, pos + lo, b).to(lead))
+        cand_code.append(torch.where(valid, dec[safe], 0).to(torch.uint8).to(lead))
+        cand_up.append((valid & ups[safe]).to(lead))
+    # the global compaction: the shards' candidates concatenate in row
+    # order, so the first K valid ones are the whole bucket's first K
+    if cand_idx:
+        cidx, ccode, cup = torch.cat(cand_idx), torch.cat(cand_code), torch.cat(cand_up)
+        m = cidx.shape[0]
+        take = first_true(cidx < b, k)
+        hit = take < m
+        tsafe = take.clamp(max=m - 1).long()
+        patch_idx = torch.where(hit, cidx[tsafe], b)
+        patch_code = torch.where(hit, ccode[tsafe], 0).to(torch.uint8)
+        patch_up = hit & cup[tsafe]
+    else:
+        patch_idx = torch.full((k,), b, dtype=i32, device=lead)
+        patch_code = torch.zeros(k, dtype=torch.uint8, device=lead)
+        patch_up = torch.zeros(k, dtype=torch.bool, device=lead)
+    part = torch.stack(sums).sum(dim=0, dtype=i32)
+    total = part[5]
+    leaf = torch.cat(leaves)
+    dirty = torch.cat(dirties)
+    stats = torch.stack([
+        part[0], part[1], part[2], part[3], part[4],
+        dirty.sum(dtype=i32), match_counts.sum(dtype=i32), n_valid.to(lead)])
+    new_current = ShardedTensor(mesh, FLAGS, state.current.shape, currents)
+    return _Sharded(
+        state=state._replace(current=new_current),
+        patch_idx=patch_idx.to(i32), patch_code=patch_code, patch_upsync=patch_up,
+        patch_count=total.clamp(max=k), patch_overflow=total > k, stats=stats,
+        decisions=decisions, upsyncs=upsyncs, leaf=leaf, dirty=dirty,
+        match_counts=match_counts,
+        seg_counts=torch.stack(segs).sum(dim=0, dtype=i32) if segs else None)

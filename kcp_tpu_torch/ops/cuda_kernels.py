@@ -20,6 +20,16 @@ The kernel is compiled with ``nvcc`` at first use into
 with ctypes) and rebuilt when its source is newer than the library.
 ``decide_and_match.launches`` counts kernel launches; nothing else
 touches it.
+
+``decide_and_match_sharded`` is the mesh form (it replaces
+``kcp_tpu/ops/pallas_kernels.py:decide_and_match_sharded``, a
+``shard_map`` of the Pallas kernel plus a ``psum`` of the counts): one
+launch of the same kernel per row shard, on that shard's device, over the
+shard's rows with its slot columns gathered to full S; the [C] counts of
+shards that share a device accumulate into one zeroed buffer (the kernel
+adds into the counts it is given), and the per-device sums are added on
+the mesh's lead device. ``decide_and_match_sharded.launches`` counts
+those per-shard launches.
 """
 
 from __future__ import annotations
@@ -140,28 +150,22 @@ def _check(up_vals, up_exists, down_vals, down_exists, status_mask,
                          f"got {tuple(sel_hashes.shape)}")
 
 
-def decide_and_match(up_vals, up_exists, down_vals, down_exists, status_mask,
-                     pair_hashes, sel_hashes):
-    """Fused decision + fan-out: (decision u8 [B], upsync bool [B],
-    match_counts int32 [C]).
-
-    ``status_mask`` may be the bucket-wide [S] form or the serving core's
-    per-row [B, S] form. Any B works, including ragged fleet sums."""
-    dev = up_vals.device
-    if dev.type == "cpu":
-        return decide_and_match_plain(up_vals, up_exists, down_vals, down_exists,
-                                      status_mask, pair_hashes, sel_hashes)
-    if dev.type != "cuda":
-        raise ValueError(f"decide_and_match: unsupported device {dev}")
+def _launch(up_vals, up_exists, down_vals, down_exists, status_mask,
+            pair_hashes, sel_hashes, counts):
+    """Launch the kernel on the tensors' card; it ADDS each selector's
+    hits into ``counts`` (int32 [C] on the same device). Returns
+    (decision, upsync, launched); B=0 launches nothing."""
     _check(up_vals, up_exists, down_vals, down_exists, status_mask,
            pair_hashes, sel_hashes)
+    dev = up_vals.device
     b, s = up_vals.shape
     l, c = pair_hashes.shape[1], sel_hashes.shape[0]
+    if counts.device != dev or counts.dtype != torch.int32 or counts.shape != (c,):
+        raise ValueError(f"decide_and_match: counts must be int32 [{c}] on {dev}")
     decision = torch.empty(b, dtype=torch.uint8, device=dev)
     upsync = torch.empty(b, dtype=torch.bool, device=dev)
-    counts = torch.zeros(c, dtype=torch.int32, device=dev)
     if b == 0:
-        return decision, upsync, counts
+        return decision, upsync, False
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -175,8 +179,98 @@ def decide_and_match(up_vals, up_exists, down_vals, down_exists, status_mask,
     if rc != 0:
         raise RuntimeError(f"decide_and_match: kernel launch failed with CUDA "
                            f"error {rc}")
-    decide_and_match.launches += 1
+    return decision, upsync, True
+
+
+def decide_and_match(up_vals, up_exists, down_vals, down_exists, status_mask,
+                     pair_hashes, sel_hashes):
+    """Fused decision + fan-out: (decision u8 [B], upsync bool [B],
+    match_counts int32 [C]).
+
+    ``status_mask`` may be the bucket-wide [S] form or the serving core's
+    per-row [B, S] form. Any B works, including ragged fleet sums."""
+    dev = up_vals.device
+    if dev.type == "cpu":
+        return decide_and_match_plain(up_vals, up_exists, down_vals, down_exists,
+                                      status_mask, pair_hashes, sel_hashes)
+    if dev.type != "cuda":
+        raise ValueError(f"decide_and_match: unsupported device {dev}")
+    counts = torch.zeros(sel_hashes.shape[0], dtype=torch.int32, device=dev)
+    decision, upsync, launched = _launch(
+        up_vals, up_exists, down_vals, down_exists, status_mask,
+        pair_hashes, sel_hashes, counts)
+    decide_and_match.launches += launched
     return decision, upsync, counts
 
 
 decide_and_match.launches = 0
+
+
+def decide_and_match_shards(shards, lead: torch.device):
+    """The per-shard core of :func:`decide_and_match_sharded`.
+
+    ``shards`` holds one 7-tuple per row shard — (up_vals, up_exists,
+    down_vals, down_exists, status_mask, pair_hashes, sel_hashes), each
+    the shard's rows with full S, on the shard's device. Returns the
+    per-shard decision and upsync lanes and the global [C] counts on
+    ``lead``. CPU shards take the plain version; CUDA shards launch the
+    kernel, accumulating into one zeroed [C] buffer per device."""
+    acc: dict[torch.device, torch.Tensor] = {}
+    decisions, upsyncs = [], []
+    for args in shards:
+        dev = args[0].device
+        c = args[6].shape[0]
+        if dev not in acc:
+            acc[dev] = torch.zeros(c, dtype=torch.int32, device=dev)
+        if dev.type == "cpu":
+            d, u, cnt = decide_and_match_plain(*args)
+            acc[dev] += cnt
+        elif dev.type == "cuda":
+            d, u, launched = _launch(*args, acc[dev])
+            decide_and_match_sharded.launches += launched
+        else:
+            raise ValueError(f"decide_and_match_sharded: unsupported device {dev}")
+        decisions.append(d)
+        upsyncs.append(u)
+    # the psum: partial counts of the other devices come to the lead
+    # (stream-ordered copies) and add there
+    parts = list(acc.values())
+    counts = parts[0].to(lead)
+    for part in parts[1:]:
+        counts = counts + part.to(lead)
+    return decisions, upsyncs, counts
+
+
+def decide_and_match_sharded(mesh, up_vals, up_exists, down_vals, down_exists,
+                             status_mask, pair_hashes, sel_hashes):
+    """The fused pass on a sharded bucket: (decision u8 [B] and upsync
+    bool [B] as row-sharded :class:`~kcp_tpu_torch.parallel.mesh.ShardedTensor`s,
+    match counts int32 [C] on the mesh's lead device).
+
+    Arguments are ShardedTensors laid out as ``shard_state`` lays out a
+    state, or whole tensors, which are sharded here with that layout.
+    Every row shard runs the kernel (or, on the CPU, the plain version)
+    over its local rows with its slot columns gathered to full S. Any B
+    works, including one that does not split evenly over the row shards:
+    the split is uneven (``parallel.mesh.row_bounds``), never padded, so
+    the reference's TPU gates (the XLA-lane fallback for a slots axis or
+    for local rows off a multiple of 128) do not exist here."""
+    from ..parallel import mesh as pm
+
+    layouts = (pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS,
+               pm.ROWS if status_mask.ndim == 2 else pm.SLOT_MASK,
+               pm.FLAGS, pm.REPLICATED)
+    args = [a if isinstance(a, pm.ShardedTensor) else pm.ShardedTensor.put(a, mesh, lay)
+            for a, lay in zip((up_vals, up_exists, down_vals, down_exists,
+                               status_mask, pair_hashes, sel_hashes), layouts)]
+    shards = [tuple(a.row_block(i) for a in args)
+              for i in range(pm.row_factor(mesh))]
+    decisions, upsyncs, counts = decide_and_match_shards(shards, mesh.lead)
+    b = args[0].shape[0]
+    rows = [[d] for d in decisions]
+    return (pm.ShardedTensor(mesh, pm.FLAGS, (b,), rows),
+            pm.ShardedTensor(mesh, pm.FLAGS, (b,), [[u] for u in upsyncs]),
+            counts)
+
+
+decide_and_match_sharded.launches = 0

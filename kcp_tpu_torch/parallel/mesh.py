@@ -1,0 +1,345 @@
+"""Device meshes and sharded reconcile state (the port of
+``kcp_tpu.parallel.mesh``).
+
+The scale dimension of the control plane is object count x logical
+cluster count: the reconcile batch is a [B, S] mirror whose B rows span
+every object of every tenant. The layout is the reference's:
+
+- ``tenants`` axis (data-parallel): rows are range-sharded, so each row
+  shard owns a contiguous block of tenants' objects and every row-local
+  lane (scatter, decision, placement) needs no communication;
+- ``slots`` axis: the [B, S] columns of wide buckets split over it; the
+  decision reduces over slots, so a row shard gathers its columns first
+  (the reference's ``P(row, None)`` kernel in-spec);
+- ``hosts`` axis (:func:`make_multihost_mesh`): a major axis that rows
+  fold over together with ``tenants``, so tenant blocks nest in host
+  blocks.
+
+Where the reference annotates ``NamedSharding``s and lets XLA insert the
+collectives, the port holds each shard as its own tensor on its own
+device (:class:`ShardedTensor`) and the sharded step
+(``models/reconcile_model.py``) reduces the cross-shard quantities on the
+mesh's lead device itself. A mesh's device list may repeat a device: the
+tests build 8 x ``cpu`` meshes and the card smoke 4 x ``cuda:0``. Every
+shard is still a separate allocation, so the per-shard code is the code a
+host with several cards runs. Copies between devices go through
+``Tensor.to``, whose cross-device path orders the two devices' current
+streams with events; between shards of one device it is a no-op.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+HOSTS_AXIS = "hosts"
+TENANTS_AXIS = "tenants"
+SLOTS_AXIS = "slots"
+
+# the process-wide serving mesh: set once at startup, read by
+# FusedCore.for_current_loop when no explicit mesh is threaded through —
+# so every sync engine in the process serves sharded without each call
+# site re-plumbing it
+_SERVING_MESH: "Mesh | None" = None
+
+
+class Mesh:
+    """A grid of ``torch.device``s with named axes (``hosts``/``tenants``/
+    ``slots``). ``devices`` is a numpy object array shaped like the axes."""
+
+    def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...]):
+        if devices.ndim != len(axis_names):
+            raise ValueError(f"device grid of rank {devices.ndim} for axes {axis_names}")
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        rf, sf = row_factor(self), slot_factor(self)
+        # [row shard][slot shard] -> device; row shards follow the
+        # (hosts, tenants) fold in C order
+        self.grid: list[list[torch.device]] = [
+            list(r) for r in devices.reshape(rf, sf)]
+        self.lead = self.grid[0][0]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, Mesh) and self.axis_names == other.axis_names
+                and self.devices.shape == other.devices.shape
+                and list(self.devices.flat) == list(other.devices.flat))
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.devices.flat]})")
+
+
+def _visible_devices() -> list[torch.device]:
+    """Every visible CUDA device: the default device list of a mesh."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError(
+            "a mesh defaults to the visible CUDA devices and there are none; "
+            "pass devices= (e.g. [torch.device('cpu')] * 8) to build one on "
+            "the host")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _as_devices(devices) -> list[torch.device]:
+    return [torch.device(d) for d in devices]
+
+
+def set_serving_mesh(mesh: "Mesh | str | None") -> "Mesh | None":
+    """Install the process-default serving mesh (a Mesh or a spec string
+    like ``"8"``, ``"4x2"``, ``"2x2x2"`` over the visible CUDA devices).
+    None clears it."""
+    global _SERVING_MESH
+    _SERVING_MESH = mesh_from_spec(mesh) if isinstance(mesh, str) else mesh
+    return _SERVING_MESH
+
+
+def get_serving_mesh() -> "Mesh | None":
+    return _SERVING_MESH
+
+
+def mesh_from_spec(spec: str, devices: list | None = None) -> Mesh:
+    """Build a mesh from a spec string.
+
+    ``"8"`` -> (tenants=8, slots=1); ``"4x2"`` -> (tenants=4, slots=2);
+    ``"2x2x2"`` -> (hosts=2, tenants=2, slots=2); ``"auto"`` -> the flat
+    tenants mesh over this process's visible CUDA devices. ``devices``
+    defaults to the visible CUDA devices and may repeat a device.
+    """
+    if spec.strip().lower() == "auto":
+        from .distributed import pod_serving_mesh
+
+        return pod_serving_mesh()
+    parts = spec.lower().replace("*", "x").split("x")
+    if not parts or any(not p.strip().isdigit() for p in parts):
+        raise ValueError(f"bad mesh spec {spec!r}: want N, NxM or NxMxK")
+    dims = [int(p) for p in parts]
+    if any(d < 1 for d in dims) or len(dims) > 3:
+        raise ValueError(f"bad mesh spec {spec!r}: want N, NxM or NxMxK")
+    devs = _as_devices(devices) if devices is not None else _visible_devices()
+    n = int(np.prod(dims))
+    if len(devs) < n:
+        raise ValueError(
+            f"mesh spec {spec!r} needs {n} devices, have {len(devs)}; "
+            f"shrink the spec or pass devices= with {n} entries (a device "
+            f"may repeat, e.g. [torch.device('cuda:0')] * {n})")
+    if len(dims) == 1:
+        return make_mesh(n_devices=dims[0], slots=1, devices=devs)
+    if len(dims) == 2:
+        return make_mesh(n_devices=n, tenants=dims[0], slots=dims[1], devices=devs)
+    h, t, s = dims
+    return make_multihost_mesh(hosts=h, tenants=t, slots=s, devices=devs[:n])
+
+
+def _grid(devs: list[torch.device], shape: tuple[int, ...]) -> np.ndarray:
+    arr = np.empty(len(devs), dtype=object)
+    arr[:] = devs
+    return arr.reshape(shape)
+
+
+def make_mesh(n_devices: int | None = None, tenants: int | None = None,
+              slots: int = 1, devices: list | None = None) -> Mesh:
+    """A 2D (tenants, slots) mesh over the first ``n_devices`` devices."""
+    devs = _as_devices(devices) if devices is not None else _visible_devices()
+    if n_devices is not None:
+        if len(devs) < n_devices:
+            raise ValueError(
+                f"requested {n_devices} devices but only {len(devs)} available")
+        devs = devs[:n_devices]
+    n = len(devs)
+    if tenants is None:
+        tenants = n // slots
+    if tenants * slots != n:
+        raise ValueError(f"mesh {tenants}x{slots} != {n} devices")
+    return Mesh(_grid(devs, (tenants, slots)), (TENANTS_AXIS, SLOTS_AXIS))
+
+
+def make_multihost_mesh(hosts: int, tenants: int | None = None, slots: int = 1,
+                        devices: list | None = None) -> Mesh:
+    """A 3D (hosts, tenants, slots) mesh with hosts as the major axis."""
+    devs = _as_devices(devices) if devices is not None else _visible_devices()
+    n = len(devs)
+    if n % hosts:
+        raise ValueError(f"{n} devices not divisible into {hosts} hosts")
+    per_host = n // hosts
+    if tenants is None:
+        tenants = per_host // slots
+    if tenants * slots != per_host:
+        raise ValueError(f"per-host mesh {tenants}x{slots} != {per_host} devices")
+    return Mesh(_grid(devs, (hosts, tenants, slots)),
+                (HOSTS_AXIS, TENANTS_AXIS, SLOTS_AXIS))
+
+
+def row_factor(mesh: Mesh) -> int:
+    """Product of the row-axis sizes (hosts x tenants) — the shard count
+    of every B/R dimension. THE single source for row-axis arithmetic."""
+    dims = mesh.shape
+    return dims.get(HOSTS_AXIS, 1) * dims.get(TENANTS_AXIS, 1)
+
+
+def slot_factor(mesh: Mesh) -> int:
+    """Size of the slots axis (1 when absent)."""
+    return mesh.shape.get(SLOTS_AXIS, 1)
+
+
+# ---------------------------------------------------------------------------
+# Sharded tensors
+# ---------------------------------------------------------------------------
+
+
+class Layout(NamedTuple):
+    """How one tensor lies on a mesh: dim 0 split over the row axes
+    (``rows``) or replicated on every row shard, the last dim split over
+    ``slots`` (``cols``) or whole."""
+
+    rows: bool
+    cols: bool
+
+
+ROWS = Layout(rows=True, cols=True)  # [B, S] mirrors and per-row masks
+FLAGS = Layout(rows=True, cols=False)  # [B], [B, L], [R], [R, P]
+SLOT_MASK = Layout(rows=False, cols=True)  # bucket-wide [S] status mask
+REPLICATED = Layout(rows=False, cols=False)  # [C] selectors
+
+
+def row_bounds(n: int, shards: int) -> list[tuple[int, int]]:
+    """Contiguous row ranges of ``n`` rows over ``shards`` shards:
+    ceil(n / shards) rows each, the remainder on the last ones (empty
+    when n < shards). Uneven splits are allowed — the sharded step takes
+    any B, as the reference's XLA lanes do."""
+    per = -(-n // shards) if n else 0
+    return [(min(i * per, n), min((i + 1) * per, n)) for i in range(shards)]
+
+
+def _col_bounds(s: int, shards: int) -> list[tuple[int, int]]:
+    if s % shards:
+        raise ValueError(f"{s} slot columns do not split over a slots axis "
+                         f"of {shards}; use a slot width divisible by it")
+    w = s // shards
+    return [(j * w, (j + 1) * w) for j in range(shards)]
+
+
+class ShardedTensor:
+    """One logical tensor held as per-shard tensors on a mesh.
+
+    ``blocks[i][j]`` is row shard ``i``'s column block ``j`` on device
+    ``mesh.grid[i][j]``. A replicated-rows layout keeps one copy per row
+    shard (each row shard reads its own); a whole-columns layout keeps
+    one block per row shard, on the row shard's lead device. Blocks are
+    separate tensors, never views of one tensor.
+    """
+
+    def __init__(self, mesh: Mesh, layout: Layout, shape: tuple[int, ...],
+                 blocks: list[list[torch.Tensor]]):
+        self.mesh = mesh
+        self.layout = layout
+        self.shape = tuple(shape)
+        self.blocks = blocks
+        rf = row_factor(mesh)
+        self.bounds = (row_bounds(self.shape[0], rf) if layout.rows
+                       else [(0, self.shape[0] if self.shape else 0)] * rf)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @classmethod
+    def put(cls, t: torch.Tensor, mesh: Mesh, layout: Layout) -> "ShardedTensor":
+        """Split ``t`` (on any device) into blocks on the mesh's devices."""
+        rf, sf = row_factor(mesh), slot_factor(mesh)
+        layout = Layout(layout.rows, layout.cols and sf > 1)
+        rows = row_bounds(t.shape[0], rf) if layout.rows else [(0, t.shape[0])] * rf
+        cols = _col_bounds(t.shape[-1], sf) if layout.cols else [(0, None)]
+        blocks = []
+        for i, (a, z) in enumerate(rows):
+            part = t[a:z]
+            blocks.append([
+                part[..., c0:c1].to(mesh.grid[i][j], copy=True).contiguous()
+                for j, (c0, c1) in enumerate(cols)])
+        return cls(mesh, layout, tuple(t.shape), blocks)
+
+    def row_block(self, i: int) -> torch.Tensor:
+        """Row shard ``i`` with its full last dim, on the row shard's lead
+        device: the block itself when columns are whole (so in-place
+        updates reach the shard), else a gather of its column blocks."""
+        blks = self.blocks[i]
+        if len(blks) == 1:
+            return blks[0]
+        dev = blks[0].device
+        return torch.cat([b.to(dev) for b in blks], dim=-1)
+
+    def write_row_block(self, i: int, full: torch.Tensor) -> None:
+        """Scatter a full-width row block back into its column blocks
+        (a no-op when columns are whole: ``full`` is the block)."""
+        blks = self.blocks[i]
+        if len(blks) == 1:
+            return
+        w = blks[0].shape[-1]
+        for j, b in enumerate(blks):
+            b.copy_(full[..., j * w:(j + 1) * w])
+
+    def full(self, device: torch.device | None = None) -> torch.Tensor:
+        """The whole tensor on ``device`` (default the mesh's lead)."""
+        dev = self.mesh.lead if device is None else device
+        parts = [self.row_block(i).to(dev) for i in range(len(self.blocks))]
+        if not self.layout.rows:
+            return parts[0]
+        return torch.cat(parts, dim=0)
+
+    def clone(self) -> "ShardedTensor":
+        return ShardedTensor(self.mesh, self.layout, self.shape,
+                             [[b.clone() for b in r] for r in self.blocks])
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={self.shape}, layout={self.layout}, "
+                f"{len(self.blocks)}x{len(self.blocks[0])} blocks)")
+
+
+def state_sharding_tree(mesh: Mesh, row_status_mask: bool = False):
+    """A ReconcileState of :class:`Layout`s — THE single source of truth
+    for how reconcile state lies on a mesh (used by :func:`shard_state`
+    and the serving core).
+
+    rows [B, S]     -> (rows over hosts x tenants, columns over slots)
+    flags [B]       -> rows
+    slot mask [S]   -> columns over slots, on every row shard
+    placement [R,*] -> rows (of R)
+    labels [B, L]   -> rows
+    selectors [C]   -> replicated on every row shard
+
+    ``row_status_mask`` selects the [B, S] per-row mask layout (the fused
+    serving core's heterogeneous-vocabulary buckets)."""
+    from ..models.reconcile_model import ReconcileState
+
+    del mesh  # the layout is the same on every mesh; blocks follow its grid
+    return ReconcileState(
+        up_vals=ROWS, up_exists=FLAGS, down_vals=ROWS, down_exists=FLAGS,
+        status_mask=ROWS if row_status_mask else SLOT_MASK,
+        replicas=FLAGS, avail=FLAGS, current=FLAGS,
+        pair_hashes=FLAGS, sel_hashes=REPLICATED,
+    )
+
+
+def shard_state(state, mesh: Mesh):
+    """A ReconcileState (numpy arrays, as ``example_state`` gives, or
+    tensors) as a ReconcileState of :class:`ShardedTensor` on ``mesh``:
+    uint32 lanes become int32 bit views, every block is a copy."""
+    from ..models.reconcile_model import to_device
+
+    tree = state_sharding_tree(mesh, row_status_mask=np.ndim(state.status_mask) == 2)
+    cpu = torch.device("cpu")
+    return type(tree)(*(
+        ShardedTensor.put(a if isinstance(a, torch.Tensor) else to_device(a, cpu),
+                          mesh, lay)
+        for a, lay in zip(state, tree)))
+
+
+def gather_state(state):
+    """A sharded ReconcileState back as whole tensors on the lead device
+    (tests and debugging)."""
+    return type(state)(*(t.full() for t in state))

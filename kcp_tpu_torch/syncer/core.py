@@ -44,8 +44,16 @@ size, nothing recompiles) and re-ticks.
 
 Devices: the core runs on the CUDA card by default (``device=None``) and
 raises without one; tests pass ``device="cpu"``, where the step takes the
-kernel's plain PyTorch version. Multi-device serving (``mesh=``) is not
-ported yet and raises ``NotImplementedError``.
+kernel's plain PyTorch version.
+
+Mesh serving: pass ``mesh=`` (a :class:`~kcp_tpu_torch.parallel.mesh.Mesh`)
+to shard every bucket's state over the mesh, with the
+layout of ``parallel/mesh.py``: rows over ``(hosts, tenants)``, slot
+columns over ``slots``. Bucket rows pad to the row factor, the slot
+capacity must divide by the slots axis, and each tick's step runs the
+kernel once per row shard (``decide_and_match_sharded``). The wire comes
+back to the mesh's lead device; its host fetch waits on an event per
+shard device.
 """
 
 from __future__ import annotations
@@ -76,6 +84,15 @@ from ..models.reconcile_model import (
     unpack_seg_counts,
 )
 from ..ops.encode import BucketOverflow, pad_pow2
+from ..parallel.mesh import (
+    FLAGS,
+    Mesh,
+    ShardedTensor,
+    get_serving_mesh,
+    row_factor,
+    shard_state,
+    slot_factor,
+)
 from ..reconciler.controller import BatchController
 from ..utils.device import resolve_device
 from ..utils.trace import DEPTH_BUCKETS, REGISTRY
@@ -91,11 +108,23 @@ def _grown(a: np.ndarray, shape, dtype) -> np.ndarray:
     return out
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "kcp_tpu_torch serves on one device; mesh serving is not "
-            "ported yet")
+def _upload_state(state: ReconcileState, device: torch.device, mesh):
+    """Host mirrors as the resident state: whole on ``device``, or
+    sharded over ``mesh``."""
+    if mesh is None:
+        return state_from_numpy(state, device)
+    return shard_state(state, mesh)
+
+
+def _upload(a: np.ndarray, device: torch.device, mesh, layout):
+    """One host array as a resident leaf (``layout`` on a mesh)."""
+    if mesh is None:
+        return to_device(a, device)
+    return ShardedTensor.put(to_device(a, torch.device("cpu")), mesh, layout)
+
+
+def _mesh_devices(mesh) -> tuple:
+    return () if mesh is None else tuple(dict.fromkeys(mesh.devices.flat))
 
 
 def _clone_state(state: ReconcileState) -> ReconcileState:
@@ -260,17 +289,30 @@ class Section:
 class FusedBucket:
     """One schema bucket: host staging + device-resident fused state."""
 
-    def __init__(self, slots: int, device: torch.device,
-                 always_stamp: bool = False):
+    def __init__(self, slots: int, device: torch.device | None = None,
+                 mesh: Mesh | None = None, always_stamp: bool = False):
         self.S = slots
         self.B = 0
-        self.device = device
+        self.mesh = mesh
+        self.device = mesh.lead if mesh is not None else resolve_device(device)
         # fleet mode: every newly-allocated row stages a mask stamp (the
         # wire entry that also carries its segment id), mask or no mask
         self.always_stamp = always_stamp
         # converged-row ack compression kill switch, resolved once (the
         # opt-out cannot change mid-process; staging is the hot path)
         self.use_acks = os.environ.get("KCP_NO_ACKS") != "1"
+        # sharded state splits cleanly: row counts are padded to a
+        # multiple of the row-axis product (see _grow), and the slots
+        # axis must divide the (power-of-two) slot capacity up front
+        self._row_factor = 1
+        if mesh is not None:
+            self._row_factor = row_factor(mesh)
+            slot_dim = slot_factor(mesh)
+            if slots % slot_dim:
+                raise ValueError(
+                    f"bucket slot capacity {slots} is not divisible by the "
+                    f"mesh slots axis ({slot_dim}); use a power-of-two "
+                    f"slots axis")
         self.up_vals = np.zeros((0, slots), np.uint32)
         self.down_vals = np.zeros((0, slots), np.uint32)
         self.up_exists = np.zeros(0, bool)
@@ -321,7 +363,7 @@ class FusedBucket:
         # tick N+1 packs into the other (pinned) buffer while tick N's
         # upload may still be reading this one — the allocation-free hot
         # path that makes the 2-deep pipeline window safe
-        self._wire_bufs = WireBuffers(PIPELINE_DEPTH, device)
+        self._wire_bufs = WireBuffers(PIPELINE_DEPTH, self.device)
         # degraded-mode bookkeeping (poison-row quarantine): the rows the
         # last submission covered (the bisection's suspect set) and the
         # consecutive step-failure count. Probes step a CLONE of the
@@ -359,6 +401,10 @@ class FusedBucket:
 
     def _grow(self, needed: int) -> None:
         new_b = pad_pow2(max(needed, MIN_ROWS))
+        if new_b % self._row_factor:
+            # non-power-of-two row sharding (e.g. a 5-device tenants
+            # axis): round up so every row shard is the same size
+            new_b += self._row_factor - new_b % self._row_factor
         self.up_vals = _grown(self.up_vals, (new_b, self.S), np.uint32)
         self.down_vals = _grown(self.down_vals, (new_b, self.S), np.uint32)
         self.up_exists = _grown(self.up_exists, (new_b,), bool)
@@ -427,6 +473,8 @@ class FusedBucket:
 
     def _pl_grow(self, needed: int) -> None:
         new_r = pad_pow2(max(needed, 8))
+        if new_r % self._row_factor:
+            new_r += self._row_factor - new_r % self._row_factor
         self.pl_replicas = _grown(self.pl_replicas, (new_r,), np.int32)
         self.pl_avail = _grown(self.pl_avail, (new_r, self.P), bool)
         self.R = new_r
@@ -540,12 +588,14 @@ class FusedBucket:
     def _device_state(self) -> ReconcileState:
         # placement lanes: real when a placement owner registered (the
         # splitter's roots), minimal placeholders otherwise — either way
-        # the program IS the flagship step, lanes and all
+        # the program IS the flagship step, lanes and all (placement
+        # rows are row-sharded too — pad to the row factor)
+        f = self._row_factor
         if self.R:
             replicas, avail = self.pl_replicas, self.pl_avail
             r, p = self.R, self.P
         else:
-            r = 8
+            r = ((8 + f - 1) // f) * f
             p = 8
             replicas = np.zeros(r, np.int32)
             avail = np.zeros((r, p), bool)
@@ -560,7 +610,7 @@ class FusedBucket:
             pair_hashes=np.zeros((self.B, l), np.uint32),
             sel_hashes=np.zeros(c, np.uint32),
         )
-        return state_from_numpy(state, self.device)
+        return _upload_state(state, self.device, self.mesh)
 
     def submit(self) -> tuple[HostWire, tuple[int, int]] | None:
         """Upload staged events, run one fused step, return the wire (its
@@ -590,8 +640,8 @@ class FusedBucket:
                 # ONLY the small replicas/avail leaves — never the [B,S]
                 # mirrors (shapes are stable here; growth marks stale)
                 self._pl_staged = False
-                reps = to_device(self.pl_replicas, self.device)
-                avail = to_device(self.pl_avail, self.device)
+                reps = _upload(self.pl_replicas, self.device, self.mesh, FLAGS)
+                avail = _upload(self.pl_avail, self.device, self.mesh, FLAGS)
                 self._state = self._state._replace(replicas=reps, avail=avail)
             # the staged buffers already hold the packed-wire layout
             # (vals / row / flags, the unpack_deltas format) — one padded
@@ -644,9 +694,9 @@ class FusedBucket:
         # surface — the quarantine machinery recovers either way
         faults.maybe_fail("device.step", rows=self._last_rows)
         self._state, wire = reconcile_step_packed(
-            self._state, packed, acks, patch_capacity=k)
+            self._state, packed, acks, patch_capacity=k, mesh=self.mesh)
         self._step_failures = 0
-        wire = HostWire(wire)
+        wire = HostWire(wire, _mesh_devices(self.mesh))
         t3 = time.perf_counter()
         # a stale tick's t1-t0 is the whole-mirror device upload, not the
         # steady-state pack — keep the histograms separable
@@ -687,9 +737,9 @@ class FusedBucket:
             _state, wire = reconcile_step_packed(
                 _clone_state(self._state), to_device(packed, self.device),
                 to_device(acks, self.device),
-                patch_capacity=min(self.patch_capacity, self.B))
+                patch_capacity=min(self.patch_capacity, self.B), mesh=self.mesh)
             # force execution: the card reports kernel faults at a sync
-            np.asarray(HostWire(wire))
+            np.asarray(HostWire(wire, _mesh_devices(self.mesh)))
             return True
         except Exception:  # noqa: BLE001 — any failure means "poisoned"
             return False
@@ -858,6 +908,7 @@ class FleetBatch:
     def __init__(self, core: "FusedCore"):
         self.core = core
         self.device = core.device
+        self.mesh = core.mesh
         self._members: list[FusedBucket] = []
         self._bases: list[int] = []
         self._ends: list[int] = []
@@ -932,6 +983,7 @@ class FleetBatch:
     # ------------------------------------------------------------ state
 
     def _placement_leaves(self) -> tuple[np.ndarray, np.ndarray, int, int]:
+        f = self._members[0]._row_factor if self._members else 1
         if self.R:
             r, p = self.R, self.P
             replicas = np.zeros(r, np.int32)
@@ -940,14 +992,16 @@ class FleetBatch:
                 replicas[pb:pb + b.R] = b.pl_replicas
                 avail[pb:pb + b.R, :b.P] = b.pl_avail
         else:
-            r = 8
+            r = ((8 + f - 1) // f) * f
             p = 8
             replicas = np.zeros(r, np.int32)
             avail = np.zeros((r, p), bool)
         return replicas, avail, r, p
 
     def _device_state(self) -> tuple[ReconcileState, torch.Tensor]:
-        """The concatenated fleet state + the row->segment lane."""
+        """The concatenated fleet state + the row->segment lane, sharded
+        like any bucket state on a mesh (the seg lane like the exists
+        flags)."""
         s = self.S
         up_vals = np.zeros((self.B, s), np.uint32)
         down_vals = np.zeros((self.B, s), np.uint32)
@@ -975,8 +1029,8 @@ class FleetBatch:
             pair_hashes=np.zeros((self.B, 1), np.uint32),
             sel_hashes=np.zeros(8, np.uint32),
         )
-        return (state_from_numpy(state, self.device),
-                to_device(seg, self.device))
+        return (_upload_state(state, self.device, self.mesh),
+                _upload(seg, self.device, self.mesh, FLAGS))
 
     # ------------------------------------------------------------- tick
 
@@ -1020,8 +1074,8 @@ class FleetBatch:
                 for b in self._members:
                     b._pl_staged = False
                 replicas, avail, _r, _p = self._placement_leaves()
-                reps = to_device(replicas, self.device)
-                av = to_device(avail, self.device)
+                reps = _upload(replicas, self.device, self.mesh, FLAGS)
+                av = _upload(avail, self.device, self.mesh, FLAGS)
                 self._state = self._state._replace(replicas=reps, avail=av)
             # gather the members' staged arrays (already the packed-wire
             # layout) into one fleet wire: row indices shift by the
@@ -1105,9 +1159,9 @@ class FleetBatch:
         faults.maybe_fail("device.step", rows=local_rows)
         self._state, self._seg_ids, wire = reconcile_step_fleet(
             self._state, self._seg_ids, packed_d, acks_d,
-            patch_capacity=k, seg_capacity=self._seg_capacity)
+            patch_capacity=k, seg_capacity=self._seg_capacity, mesh=self.mesh)
         self._step_failures = 0
-        wire = HostWire(wire)
+        wire = HostWire(wire, _mesh_devices(self.mesh))
         t3 = time.perf_counter()
         _phase("full_upload" if was_stale else "pack", t1 - t0)
         _phase("step_dispatch", t3 - t2)
@@ -1215,9 +1269,9 @@ class FleetBatch:
                 _clone_state(self._state), self._seg_ids.clone(),
                 to_device(packed, self.device), to_device(acks, self.device),
                 patch_capacity=self._patch_capacity(),
-                seg_capacity=self._seg_capacity)
+                seg_capacity=self._seg_capacity, mesh=self.mesh)
             # force execution: the card reports kernel faults at a sync
-            np.asarray(HostWire(wire))
+            np.asarray(HostWire(wire, _mesh_devices(self.mesh)))
             return True
         except Exception:  # noqa: BLE001 — any failure means "poisoned"
             return False
@@ -1258,9 +1312,19 @@ class FusedCore:
                  pipeline: str | None = None,
                  fleet: bool | None = None,
                  device: "str | torch.device | None" = None):
-        _no_mesh(mesh)
-        # the CUDA card unless the caller asks for the CPU by name
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        # the CUDA card unless the caller asks for the CPU by name; on a
+        # mesh, the mesh's devices (its lead takes the wires)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.lead:
+                raise ValueError(f"device={device} is not the mesh's lead "
+                                 f"device {mesh.lead}")
+            self.device = mesh.lead
+        else:
+            self.device = resolve_device(device)
         # fleet-wide ragged batching (default on): every tick packs all
         # dirty buckets into ONE pipelined device program. KCP_FLEET_BATCH=0
         # is the fallback knob — per-bucket dispatch, the A/B reference
@@ -1315,9 +1379,12 @@ class FusedCore:
         many loops sequentially; each gets a fresh core).
 
         ``pipeline=None`` falls back to ``KCP_PIPELINE`` (default
-        "double"); ``device=None`` is the CUDA card. The port has no
-        serving mesh yet: a mesh raises ``NotImplementedError``."""
-        _no_mesh(mesh)
+        "double"); ``device=None`` is the CUDA card. ``mesh=None`` falls
+        back to the process serving mesh (``parallel.mesh.set_serving_mesh``),
+        so a configured process serves sharded without every engine
+        re-plumbing the mesh."""
+        if mesh is None:
+            mesh = get_serving_mesh()
         try:
             loop = asyncio.get_running_loop()
         except RuntimeError:
@@ -1326,10 +1393,13 @@ class FusedCore:
         # the identity check guards against id() reuse after a dead loop
         # is garbage-collected: a stale core's tick task died with its loop
         if core is None or core._closed() or core._loop is not loop:
-            core = cls(pipeline=pipeline, device=device)
+            core = cls(mesh=mesh, pipeline=pipeline, device=device)
             core._loop = loop
             cls._instances[id(loop)] = core
         else:
+            if mesh is not None and core.mesh != mesh:
+                log.warning("FusedCore for this loop already exists with a "
+                            "different mesh; keeping the existing core's mesh")
             if pipeline is not None and core.pipeline != pipeline:
                 log.warning("FusedCore for this loop already exists with "
                             "pipeline=%s; keeping it", core.pipeline)
@@ -1420,7 +1490,8 @@ class FusedCore:
     def bucket(self, slots: int) -> FusedBucket:
         b = self.buckets.get(slots)
         if b is None:
-            b = FusedBucket(slots, self.device, always_stamp=self.fleet_mode)
+            b = FusedBucket(slots, self.device, mesh=self.mesh,
+                            always_stamp=self.fleet_mode)
             self.buckets[slots] = b
         return b
 

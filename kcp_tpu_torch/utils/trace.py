@@ -1,14 +1,23 @@
-"""Observability: metrics registry and timing spans (copy of the parts of
-``kcp_tpu.utils.trace`` the serving core uses).
+"""Observability: metrics registry, timing spans, device profiling.
+
+The reference has no first-party tracing — its forked apiserver serves
+standard ``/metrics`` and ``/debug/pprof`` endpoints that nothing in the
+repo touches (SURVEY.md §5). For a TPU control plane that is not enough:
+the interesting time is split between host orchestration (asyncio
+controllers, encode, apply) and device ticks (jit dispatch, transfer,
+kernel time), so this module provides
 
 - a process-global :class:`Registry` of counters / gauges / histograms
-  with Prometheus-style text exposition,
+  with Prometheus-style text exposition (served at ``/metrics`` by the
+  API server),
 - :func:`span` — a context manager timing a named section into a
   histogram (host-side structured timing).
 
 The reference's ``device_trace`` (a ``jax.profiler`` trace) has no
-counterpart here yet; a ``torch.profiler`` version comes with a later
-slice.
+counterpart here yet; a ``torch.profiler`` version is ROADMAP A3.
+
+Everything is dependency-free and safe to call on hot paths: a span is
+two ``perf_counter`` calls and a dict update.
 """
 
 from __future__ import annotations
@@ -31,14 +40,21 @@ _DEFAULT_BUCKETS = (
 # edges would fold every observation into one bucket
 DEPTH_BUCKETS = (0.0, 1.0, 2.0, 3.0, 4.0, 8.0)
 
+# count-shaped histograms (batch sizes, e.g. ``watch_fanout_batch_size``):
+# powers of two up to the store's emit-batch ceiling
+SIZE_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0)
+
 
 @dataclass
 class Counter:
     name: str
     help: str = ""
     value: float = 0.0
-    # increments can come from executor threads: a read-add-store needs
-    # a leaf lock (never held while acquiring anything else)
+    # REST clients, the store-I/O pool, and the router's scatter executor
+    # all inc() off the serving loop: `self.value += amount` is a
+    # read-add-store that can drop increments under thread interleaving.
+    # A plain leaf lock (never held while acquiring anything else) keeps
+    # the hot path one uncontended acquire.
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
@@ -74,7 +90,10 @@ class Histogram:
 
     def observe(self, value: float) -> None:
         # bisect_left: an observation equal to a bucket edge belongs in
-        # that bucket (Prometheus's inclusive `le` semantics)
+        # that bucket (Prometheus's inclusive `le` semantics). The lock
+        # makes the three mutations one transaction — observe() runs on
+        # executor threads too, and a torn counts/total/n triple yields
+        # impossible exposition (count < bucket cum sums).
         i = bisect_left(self.buckets, value)
         with self._lock:
             self.counts[i] += 1
@@ -111,8 +130,7 @@ class Registry:
     def gauge(self, name: str, help: str = "") -> Gauge:
         return self._get_or_make(name, lambda: Gauge(name, help))
 
-    def histogram(self, name: str, help: str = "",
-                  buckets: tuple = _DEFAULT_BUCKETS) -> Histogram:
+    def histogram(self, name: str, help: str = "", buckets: tuple = _DEFAULT_BUCKETS) -> Histogram:
         return self._get_or_make(name, lambda: Histogram(name, help, buckets))
 
     def _get_or_make(self, name, factory):
@@ -124,6 +142,10 @@ class Registry:
 
     @staticmethod
     def _escape_help(text: str) -> str:
+        """Prometheus text-format HELP escaping: backslash and newline
+        are the two characters the exposition grammar reserves — an
+        unescaped newline in help text splits the line and corrupts
+        every scrape of the whole page."""
         return text.replace("\\", "\\\\").replace("\n", "\\n")
 
     def expose(self) -> str:
@@ -178,3 +200,101 @@ def span(name: str, registry: Registry = REGISTRY):
         yield
     finally:
         h.observe(time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# Host profiling (the reference inherits /debug/pprof from its generic
+# apiserver chain, pkg/server/server.go:145; this is the asyncio-native
+# analog): a sampling wall profiler over every thread's stack plus an
+# asyncio task dump, served at /debug/profile by the REST handler.
+# ---------------------------------------------------------------------------
+
+
+def dump_tasks() -> list[dict]:
+    """All live asyncio tasks of the running loop with their current
+    coroutine stacks — who is waiting where."""
+    import asyncio
+
+    try:
+        loop = asyncio.get_running_loop()
+    except RuntimeError:
+        return []
+    out = []
+    for t in asyncio.all_tasks(loop):
+        frames = []
+        for f in t.get_stack(limit=8):
+            frames.append(f"{f.f_code.co_filename.rsplit('/', 1)[-1]}:"
+                          f"{f.f_lineno} {f.f_code.co_name}")
+        out.append({
+            "name": t.get_name(),
+            "coro": getattr(t.get_coro(), "__qualname__", str(t.get_coro())),
+            "done": t.done(),
+            "stack": frames,
+        })
+    return sorted(out, key=lambda d: d["name"])
+
+
+def _sample_once(agg: dict, skip_thread: int) -> None:
+    import sys
+
+    for tid, frame in sys._current_frames().items():
+        if tid == skip_thread:
+            continue
+        stack = []
+        f = frame
+        depth = 0
+        while f is not None and depth < 24:
+            stack.append(f"{f.f_code.co_filename.rsplit('/', 1)[-1]}:"
+                         f"{f.f_lineno} {f.f_code.co_name}")
+            f = f.f_back
+            depth += 1
+        key = (tid, tuple(stack))
+        agg[key] = agg.get(key, 0) + 1
+
+
+async def sample_profile(seconds: float = 2.0, hz: float = 97.0) -> dict:
+    """Statistical wall profile: a sampler thread walks every thread's
+    stack at ~hz for ``seconds`` while the loop keeps serving. Returns
+    aggregated stacks with sample counts (top 20), plus the asyncio task
+    dump and the span/metric snapshot — everything needed to answer
+    "where does tick time go" without stopping the server."""
+    import asyncio
+    import threading
+
+    seconds = max(0.1, min(float(seconds), 10.0))
+    agg: dict = {}
+    done = threading.Event()
+
+    def run() -> None:
+        me = threading.get_ident()
+        interval = 1.0 / hz
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            _sample_once(agg, me)
+            time.sleep(interval)
+        done.set()
+
+    t = threading.Thread(target=run, name="kcp-profiler", daemon=True)
+    tasks_before = dump_tasks()
+    t.start()
+    while not done.is_set():
+        await asyncio.sleep(0.02)
+
+    names = {th.ident: th.name for th in threading.enumerate()}
+    total = sum(agg.values()) or 1
+    stacks = sorted(agg.items(), key=lambda kv: -kv[1])[:20]
+    return {
+        "seconds": seconds,
+        "samples": total,
+        "stacks": [
+            {
+                "thread": names.get(tid, str(tid)),
+                "count": n,
+                "pct": round(100.0 * n / total, 1),
+                "stack": list(stack),
+            }
+            for (tid, stack), n in stacks
+        ],
+        "tasks": tasks_before,
+        "spans": REGISTRY.snapshot(),
+    }

@@ -68,10 +68,13 @@ class ClosedLoopOwner(RecordingOwner):
         self.core.enqueue_many(self.section, True, rows)
 
 
-def _make_core(impl: str, pallas: bool = False, **kw):
-    """A reference core (optionally on its Pallas lane) or a port core."""
+def _make_core(impl: str, pallas: bool = False, mesh=None, **kw):
+    """A reference core (optionally on its Pallas lane) or a port core;
+    ``mesh`` is a mesh of that implementation (the port's over ``cpu``)."""
     if impl == "jax":
-        return JaxFusedCore(use_pallas=pallas, **kw)
+        return JaxFusedCore(use_pallas=pallas, mesh=mesh, **kw)
+    if mesh is not None:
+        return TorchFusedCore(mesh=mesh, **kw)
     return TorchFusedCore(device="cpu", **kw)
 
 
@@ -91,13 +94,30 @@ def _stream_bytes(stream) -> bytes:
 
 async def _lockstep(impl: str, pipeline: str, fleet: bool, seed: int,
                     rows: int = 384, steps: int = 16,
-                    pallas: bool = False) -> tuple[bytes, int]:
-    core = _make_core(impl, pallas=pallas, batch_window=0.0005,
+                    pallas: bool = False, mesh=None) -> tuple[bytes, int]:
+    core = _make_core(impl, pallas=pallas, mesh=mesh, batch_window=0.0005,
                       pipeline=pipeline, fleet=fleet)
     owner = RecordingOwner(core, rows)
     # a second section in its own (wider) bucket: fleet mode packs both
     # buckets into one ragged batch, per-bucket mode ticks them apart
     other = RecordingOwner(core, 32, s=2 * S)
+    # count finished batches: a step's events go in only once every batch
+    # the tick loop started has finished, so none of them can land in a
+    # still-processing tick's redo set and split across ticks at a point
+    # that depends on machine load. In-flight wires must be ready too:
+    # the reference's CPU device_put can alias its staging buffer, which
+    # a later tick repacks while an asynchronously dispatched step may
+    # not have read it yet (ROADMAP queue C)
+    ctl = core.controller
+    inner, finished = ctl.process_batch, [0]
+
+    async def counted(batch):
+        try:
+            return await inner(batch)
+        finally:
+            finished[0] += 1
+
+    ctl.process_batch = counted
     await core.start()
     bucket = owner.section.bucket
     rng = np.random.default_rng(seed)
@@ -121,7 +141,9 @@ async def _lockstep(impl: str, pipeline: str, fleet: bool, seed: int,
             items.append((id(other), False, j, other.section))
         before = bucket.stats["ticks"]
         core.controller.enqueue_many(items)
-        assert await _until(lambda: bucket.stats["ticks"] > before), (
+        assert await _until(lambda: bucket.stats["ticks"] > before
+                            and finished[0] == ctl.ticks
+                            and all(w.is_ready() for _b, w, _m in core._inflight)), (
             f"{impl}/{pipeline}: tick never ran for step {step}")
     await core.stop()
     assert not core._inflight
@@ -274,5 +296,6 @@ def test_core_without_a_card_refuses_the_default_device():
         pytest.skip("a card is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TorchFusedCore()
-    with pytest.raises(NotImplementedError):
+    # a mesh is a parallel.mesh.Mesh; anything else is refused
+    with pytest.raises(TypeError, match="Mesh"):
         TorchFusedCore(mesh=object(), device="cpu")

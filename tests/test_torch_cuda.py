@@ -87,3 +87,51 @@ def test_fused_core_closed_loop_on_card(cuda_device):
                                   warmup_ticks=4))
     assert out["converged"]
     assert decide_and_match.launches - before >= core._fleet.stats["ticks"] > 0
+
+
+@pytest.mark.parametrize("spec,b,s", [("4", 131072, 64), ("2x2", 8200, 32),
+                                      ("4", 1027, 16)])
+def test_sharded_kernel_equals_plain_version(cuda_device, spec, b, s):
+    """Per-shard launches on repeated cuda:0 shards, counts accumulated
+    per device: equal to the unsharded plain version."""
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded
+    from kcp_tpu_torch.parallel.mesh import mesh_from_spec, row_factor
+
+    mesh = mesh_from_spec(spec, devices=[cuda_device] * 4)
+    case = _case(np.random.default_rng(b), b, s, 1, 8, True, cuda_device)
+    before = decide_and_match_sharded.launches
+    dec, ups, counts = decide_and_match_sharded(mesh, *case)
+    torch.cuda.synchronize()
+    assert decide_and_match_sharded.launches == before + row_factor(mesh)
+    want = decide_and_match_plain(*case)
+    assert torch.equal(dec.full(), want[0]) and torch.equal(ups.full(), want[1])
+    assert torch.equal(counts, want[2])
+
+
+def test_sharded_fleet_step_on_card_equals_unsharded(cuda_device):
+    """A 4-shard step on cuda:0 gives the unsharded step's wire, bytes
+    for bytes, over two chained ticks (the second overflows)."""
+    from kcp_tpu_torch.parallel.mesh import FLAGS, ShardedTensor, mesh_from_spec, shard_state
+
+    rng = np.random.default_rng(12)
+    b, s = 8192, 32
+    state = tm.example_state(b=b, s=s, r=16, p=8, l=1, c=8, dirty_frac=0.2)
+    state = state._replace(status_mask=rng.random((b, s)) < 0.2)
+    seg = (np.arange(b) // 1500).astype(np.int32)  # segments straddle shards
+    mesh = mesh_from_spec("4", devices=[cuda_device] * 4)
+    one = [tm.state_from_numpy(state, cuda_device), tm.to_device(seg, cuda_device)]
+    sh = [shard_state(state, mesh),
+          ShardedTensor.put(tm.to_device(seg, cuda_device), mesh, FLAGS)]
+    for tick, cap in enumerate((4096, 64)):
+        packed = tm.pack_deltas(tm.example_deltas(b=b, s=s, d=128, seed=tick))
+        acks = np.full(64, -1, np.int32)
+        acks[:4] = [1, 2050, 4100, 8000]
+        wires = []
+        for side, kw in ((one, {}), (sh, {"mesh": mesh})):
+            side[0], side[1], wire = tm.reconcile_step_fleet(
+                side[0], side[1], tm.to_device(packed, cuda_device),
+                tm.to_device(acks, cuda_device), patch_capacity=cap,
+                seg_capacity=8, **kw)
+            wires.append(tm.wire_to_numpy(wire))
+        assert wires[0].tobytes() == wires[1].tobytes(), tick
+        assert bool(wires[0][1]) == (cap == 64)

@@ -2,8 +2,9 @@
 package.
 
 ``tests/conftest.py`` imports JAX into every test process, so the
-runtime check drives a tiny CPU closed loop through the port's FusedCore
-in a fresh interpreter (``-I``: no user site, no PYTHONPATH hooks) and
+runtime check imports every module of the port, drives a tiny CPU closed
+loop through its FusedCore and serves a few objects through
+``start_syncer`` on a 2 x ``cpu`` mesh, all in a fresh interpreter (``-I``: no user site, no PYTHONPATH hooks) and
 inspects its ``sys.modules``. A static scan of the port's sources and of
 ``chip_smoke.py`` backs it up for code the loop does not reach.
 """
@@ -34,11 +35,40 @@ from kcp_tpu_torch.syncer.core import FusedCore
 core = FusedCore(batch_window=0.0005, device="cpu")
 out = asyncio.run(closed_loop(core, 512, 16, churn=16, seconds=0.3,
                               warmup_ticks=3))
+
+# the serving entry point over two stores, sharded on a 2 x cpu mesh
+from kcp_tpu_torch.client import Client
+from kcp_tpu_torch.parallel import mesh_from_spec
+from kcp_tpu_torch.store import LogicalStore
+from kcp_tpu_torch.syncer import start_syncer
+from kcp_tpu_torch.syncer.engine import CLUSTER_LABEL
+
+
+async def serve():
+    up, down = Client(LogicalStore(), "t"), Client(LogicalStore(), "p")
+    mesh = mesh_from_spec("2", devices=[torch.device("cpu")] * 2)
+    syncer = await start_syncer(up, down, ["configmaps"], "c1", mesh=mesh)
+    for i in range(8):
+        up.create("configmaps", {"apiVersion": "v1", "kind": "ConfigMap",
+                  "metadata": {"name": f"cm-{i}", "namespace": "default",
+                               "labels": {CLUSTER_LABEL: "c1"}}, "data": {"v": str(i)}})
+    for _ in range(2000):
+        if len(down.list("configmaps")[0]) == 8:
+            break
+        await asyncio.sleep(0.005)
+    n = len(down.list("configmaps")[0])
+    sharded = type(syncer.engines[0].core._fleet._state.up_vals).__name__
+    await syncer.stop()
+    return n, sharded
+
+
+synced, sharded = asyncio.run(serve())
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "kcp_tpu"))
 print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
                   "queue": type(core.controller.queue).__name__,
                   "fair": type(make_queue("probe")).__name__,
+                  "synced": synced, "sharded": sharded,
                   "loaded": loaded}))
 """
 
@@ -52,6 +82,7 @@ def test_port_closed_loop_loads_no_jax_and_no_reference_module():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["loaded"] == [], f"port loaded {res['loaded']}"
     assert res["converged"] and res["ticks"] > 0
+    assert res["synced"] == 8 and res["sharded"] == "ShardedTensor"
     # the controller's queue is the native fair queue when the repo's
     # library builds, else the plain one: either is the port's own class
     assert res["queue"] in ("FairWorkQueue", "WorkQueue")

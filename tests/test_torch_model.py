@@ -196,7 +196,9 @@ def test_wire_buffers_rotate_and_reset_on_the_cpu():
 def test_mesh_and_missing_card_are_refused():
     st = tm.state_from_numpy(tm.example_state(b=64, s=8, r=8, p=4, l=1, c=2), "cpu")
     dl = tm.deltas_from_numpy(tm.example_deltas(b=64, s=8, d=8), "cpu")
-    with pytest.raises(NotImplementedError):
+    # a mesh step takes a state sharded over that mesh (shard_state); an
+    # unsharded state is refused, not silently stepped whole
+    with pytest.raises(TypeError, match="shard_state"):
         tm.reconcile_step(st, dl, mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
