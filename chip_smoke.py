@@ -5,27 +5,29 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 Phases, each fatal on failure:
 
 1. device — a CUDA card must be present; prints its name and power limit;
-2. build — compiles the port's CUDA kernel from ``kcp_tpu_torch/csrc``;
+2. build — compiles the port's CUDA kernel from ``kcp_tpu_torch/csrc``
+   (ptxas registers, stack and spills);
 3. kernel vs plain — ``decide_and_match`` against its plain PyTorch
    version on the card, exact equality, at the serving shape
-   (B=131,072, S=64, per-row mask, L=1, C=8), the model example shape
-   (B=8,192, S=64, bucket-wide mask, L=8, C=64) and a ragged
-   B=131,071; with kernel time, plain time and the bandwidth bound;
-4. device step vs CPU step — ``reconcile_step_fleet`` on the card and on
-   the CPU from one seeded state and wire at B=131,072, S=64 (acks with
-   padding, mask and segment stamps, then an overflow tick): the wires
-   must be byte-equal;
+   (B=131,072, S=64, per-row mask, L=1, C=8) in its 3-output form and in
+   its fleet form (seeded segment ids, negative and out of range among
+   them, seg_capacity 8), the model example shape (B=8,192, S=64,
+   bucket-wide mask, L=8, C=64) and a ragged B=131,071; for each, the
+   tile plan (the serving shape must take the bulk path), back-to-back
+   call time, plain time and the bound;
 3b. sharded kernel vs plain — ``decide_and_match_sharded`` over a
-   4-shard mesh (``"4"``) and a slot-sharded ``"2x2"`` mesh, both on
-   repeated ``cuda:0`` shards, at the serving shape, plus a ragged
-   B=131,071 over ``"4"``: exact equality with the unsharded plain
-   version, kernel time, plain time, bound and launches per call;
+   4-shard mesh (``"4"``, fleet form) and a slot-sharded ``"2x2"`` mesh,
+   both on repeated ``cuda:0`` shards, at the serving shape, plus a
+   ragged B=131,071 over ``"4"`` (fleet form): exact equality with the
+   unsharded plain version, back-to-back call time, plain time, bound
+   and launches per call;
 4. device step vs CPU step — ``reconcile_step_fleet`` on the card and on
    the CPU from one seeded state and wire at B=131,072, S=64 (acks with
    padding, mask and segment stamps, then an overflow tick): the wires
-   must be byte-equal;
+   must be byte-equal, and the card step may call no ``index_add_`` (the
+   kernel's fleet form counts the segments);
 4b. sharded step vs unsharded card step — the same two ticks through a
-   4-shard state on the card: byte-equal wires;
+   4-shard state on the card: byte-equal wires, no ``index_add_``;
 5. main path — a closed churn loop through the port's ``FusedCore``
    (fleet batch on, pipeline "double") at 131,072 rows x 64 slots:
    every churned row must converge, the kernel's launch count must cover
@@ -33,15 +35,21 @@ Phases, each fatal on failure:
 5b. main path, sharded — the same loop with ``FusedCore(mesh="4" over
    cuda:0)``: every row converges, the sharded kernel launches 4 times a
    tick, nothing is quarantined;
-5c. a short profiled loop (device busy share, top device events);
+5c. after the main path, what needs the profiler (a profiler session
+   can leave later launches slower on the host, so none runs before the
+   host-clock readings of phases 5 and 5b): the device time of every phase-3 and 3b case and
+   its share of the bound rate; the ``index_add_`` checks of 4 and 4b;
+   then a short profiled loop (device busy share, top device events, and
+   how many ``index_add_`` kernels ran: none is expected);
 6. engine path — ``start_syncer`` over two ``LogicalStore``s on the card,
    without a mesh and on ``"4"``: 16,384 labelled ConfigMaps across 64
    namespaces, then an update, a delete and a downstream status write
    that must reach upstream; both runs must end with equal dumps.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without a card the script exits 2
-before printing any result.
+The line before the last is the kernels' JSON record, every number in
+it measured in this run (``bound_ms`` computed from this run's inputs);
+the last line is ``{"ok": true, "device": {...}}``. Without a card the
+script exits 2 before printing any result.
 """
 
 from __future__ import annotations
@@ -57,6 +65,11 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 ALU_OPS_PER_S = 67e12  # H100 SXM non-tensor peak (float32 table rate)
 SERVING = dict(b=131072, s=64, l=1, c=8, per_row=True)
+SEG_CAPACITY = 8
+# device ms of the kernel before its redesign at the serving shape, as
+# recorded in PERF.md §6: printed for reference on a line of their own,
+# never in the kernels record
+RECORDED_EARLIER_MS = {"decide_and_match": 0.0661, "decide_and_match_sharded": 0.0787}
 SMOKE_SHARDS = 4  # row shards of the smoke meshes, all on cuda:0
 ENGINE_OBJECTS = 16384  # phase 6 (cut from 131,072 for the time limit)
 ENGINE_NAMESPACES = 64
@@ -106,16 +119,26 @@ def kernel_case(rng, b, s, l, c, per_row, torch, dev):
     return tuple(t(a) for a in (up, upe, down, dne, mask, pair, sel))
 
 
+def segments(rng, b, torch, dev):
+    """Seeded segment ids: in range, negative (from the end and beyond it),
+    out of range and SEG_NONE."""
+    seg = rng.integers(-2 * SEG_CAPACITY - 1, 2 * SEG_CAPACITY + 2, b).astype(np.int32)
+    seg[rng.random(b) < 0.05] = 0xFFFF
+    return torch.from_numpy(seg).to(dev)
+
+
 def bound(case, outs, shards: int = 1) -> tuple[float, str, int]:
     """Least time for the call: bytes (each input read once, each output
-    written once) over the HBM rate vs operations over the ALU rate. A
-    sharded call also reads the replicated selectors and writes a [C]
-    partial count once per shard."""
-    up, _upe, _down, _dne, _mask, pair, sel = case
+    written once) over the HBM rate vs operations over the ALU rate.
+    ``case`` may end with the fleet form's seg_ids, ``outs`` with its
+    segment counts. A sharded call also reads the replicated selectors
+    and writes its [C] (and [cap]) partial counts once per shard."""
+    up, _upe, _down, _dne, _mask, pair, sel = case[:7]
     nbytes = sum(x.numel() * x.element_size() for x in (*case, *outs))
-    nbytes += (shards - 1) * 2 * sel.numel() * sel.element_size()
+    partial = sum(x.numel() * x.element_size() for x in outs[2:])
+    nbytes += (shards - 1) * (sel.numel() * sel.element_size() + partial)
     b, s = up.shape
-    ops = 3 * b * s + 2 * b * pair.shape[1] * sel.shape[0]
+    ops = 3 * b * s + 2 * b * pair.shape[1] * sel.shape[0] + 4 * b * (len(case) > 7)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes)
@@ -194,9 +217,115 @@ def smoke_mesh(spec: str, dev):
     return mesh_from_spec(spec, devices=[dev] * SMOKE_SHARDS)
 
 
-def sharded_kernel_phase(rng, torch, dev, card: str) -> dict:
+def kernel_device_ms(fn, torch, calls: int = 20) -> float | None:
+    """The kernel's device time per call of ``fn`` (profiler; every launch
+    of the call summed, so a sharded call counts all its shards), or None
+    when the profiler sees no device time."""
+    _wall, ev = device_profile(lambda: [fn() for _ in range(calls)], torch)
+    dev_us = [us for k, (_n, us) in ev.items() if "decide_match_kernel" in k]
+    return sum(dev_us) / calls / 1e3 if dev_us else None
+
+
+def device_times(timed: list, card: str) -> None:
+    """The kernels' device times, read with the profiler after the main
+    path has run (a profiler session can leave later launches slower on
+    the host, which would skew the main path's host-clock readings).
+    ``timed`` holds (label, call, bound ms, back-to-back call ms, record
+    or None) from phases 3 and 3b; each record's ``ms`` is set here, to
+    the back-to-back call time where the profiler sees no device time."""
+    import torch
+
+    for label, fn, bound_ms, call_ms, record in timed:
+        dev_ms = kernel_device_ms(fn, torch)
+        ms = dev_ms if dev_ms is not None else call_ms
+        if record is not None:
+            record["ms"] = ms
+        print(f"device time {label}: {ms:.4f} ms "
+              f"({'profiler' if dev_ms is not None else 'events: profiler saw no device time'}), "
+              f"{bound_ms / ms * 100:.1f}% of the bound rate [{card}]")
+
+
+def plan_text(plan) -> str:
+    return (f"plan T={plan.tile} stages={plan.stages} grid={plan.grid} "
+            f"{'bulk' if plan.bulk else 'plain'} (plain-path rows {plan.tail_rows}, "
+            f"{plan.smem} B shared per block)")
+
+
+def kernel_phase(rng, torch, dev, card: str, timed: list) -> dict:
+    """3. decide_and_match against the plain version at four cases;
+    returns the record of the fleet form at the serving shape (the form
+    the main path launches) and adds each case to ``timed``."""
+    from kcp_tpu_torch.models import reconcile_model as tm
+    from kcp_tpu_torch.ops import cuda_kernels
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match, decide_and_match_plain
+
+    shapes = [
+        ("serving", SERVING, False),
+        ("serving", SERVING, True),
+        ("example", dict(b=8192, s=64, l=8, c=64, per_row=False), False),
+        ("ragged", dict(b=131071, s=64, l=1, c=8, per_row=True), True),
+    ]
+    record = None
+    for name, sh, fleet in shapes:
+        if name == "example":
+            st = tm.example_state(b=sh["b"], s=sh["s"], l=sh["l"], c=sh["c"], seed=3,
+                                  dirty_frac=0.03)
+            upe = rng.random(sh["b"]) >= 0.02
+            dne = rng.random(sh["b"]) >= 0.02
+            pair = np.asarray(st.pair_hashes).copy()
+            pair[rng.random(sh["b"]) < 0.3, 0] = st.sel_hashes[0]
+            case = tuple(tm.to_device(a, dev) for a in (
+                st.up_vals, upe, st.down_vals, dne, st.status_mask, pair, st.sel_hashes))
+        else:
+            case = kernel_case(rng, sh["b"], sh["s"], sh["l"], sh["c"], sh["per_row"],
+                               torch, dev)
+        kw = {}
+        if fleet:
+            kw = dict(seg_ids=segments(rng, sh["b"], torch, dev), seg_capacity=SEG_CAPACITY)
+        got = decide_and_match(*case, **kw)
+        torch.cuda.synchronize()
+        plan = cuda_kernels.last_plan
+        want = decide_and_match_plain(*case, **kw)
+        torch.cuda.synchronize()
+        err = 0
+        for label, g, w in zip(("decision", "upsync", "counts", "seg_counts"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{name}: {label} is {g.dtype}{tuple(g.shape)}, plain "
+                     f"{w.dtype}{tuple(w.shape)}")
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+        if err:
+            fail(f"{name}: kernel differs from the plain version (max abs err {err})")
+        if int(want[0].ne(0).sum()) == 0 or int(want[2].sum()) == 0 or (
+                fleet and int(want[3].sum()) == 0):
+            fail(f"{name}: vacuous case (no decisions, selector hits or segment counts)")
+        if name == "serving" and not (plan.bulk and plan.tail_rows == 0):
+            fail(f"serving shape did not take the bulk path: {plan}")
+        call_ms = time_ms(lambda: decide_and_match(*case, **kw), torch, 50)
+        plain_ms = time_ms(lambda: decide_and_match_plain(*case, **kw), torch, 10)
+        inputs = (*case, kw["seg_ids"]) if fleet else case
+        bound_ms, bound_by, nbytes = bound(inputs, got)
+        label = (f"decide_and_match [{name}{', fleet form' if fleet else ''}: "
+                 f"B={sh['b']} S={sh['s']} mask={'row' if sh['per_row'] else 'bucket'} "
+                 f"L={sh['l']} C={sh['c']}{f' cap={SEG_CAPACITY}' if fleet else ''}]")
+        # the back-to-back call time is the wrapper's host cost where that
+        # is longer than the kernel; the kernel's own time comes later
+        print(f"kernel {label}: equal (tolerance: exact); {plan_text(plan)}; "
+              f"{call_ms:.4f} ms per back-to-back call (events), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B); library call: "
+              f"none (no single PyTorch call computes this function) [{card}]")
+        if name == "serving" and fleet:
+            record = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        timed.append((label, lambda case=case, kw=kw: decide_and_match(*case, **kw),
+                      bound_ms, call_ms, record if name == "serving" and fleet else None))
+        torch.cuda.synchronize()
+    return record
+
+
+def sharded_kernel_phase(rng, torch, dev, card: str, timed: list) -> dict:
     """3b. decide_and_match_sharded against the unsharded plain version;
-    returns the record of the serving shape over "4"."""
+    returns the record of the serving shape over "4" and adds each case
+    to ``timed``."""
     from kcp_tpu_torch.ops.cuda_kernels import (
         decide_and_match,
         decide_and_match_plain,
@@ -205,23 +334,28 @@ def sharded_kernel_phase(rng, torch, dev, card: str) -> dict:
     from kcp_tpu_torch.parallel import mesh as pm
 
     record = None
-    for label, spec, sh in (("serving", "4", SERVING), ("serving", "2x2", SERVING),
-                            ("ragged", "4", dict(SERVING, b=131071))):
+    for label, spec, sh, fleet in (("serving", "4", SERVING, True),
+                                   ("serving", "2x2", SERVING, False),
+                                   ("ragged", "4", dict(SERVING, b=131071), True)):
         mesh = smoke_mesh(spec, dev)
         rf = pm.row_factor(mesh)
         case = kernel_case(rng, sh["b"], sh["s"], sh["l"], sh["c"], sh["per_row"], torch, dev)
-        layouts = (pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.REPLICATED)
+        layouts = [pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.REPLICATED]
+        seg = dict(seg_capacity=SEG_CAPACITY) if fleet else {}
+        if fleet:
+            case = (*case, segments(rng, sh["b"], torch, dev))
+            layouts.append(pm.FLAGS)
         args = [pm.ShardedTensor.put(x, mesh, lay) for x, lay in zip(case, layouts)]
         before = decide_and_match_sharded.launches
-        dec, ups, counts = decide_and_match_sharded(mesh, *args)
+        got = decide_and_match_sharded(mesh, *args, **seg)
         torch.cuda.synchronize()
         per_call = decide_and_match_sharded.launches - before
         if dev.type == "cuda" and per_call != rf:
             fail(f"sharded {label} over {spec}: {per_call} launches for {rf} row shards")
-        got = (dec.full(), ups.full(), counts)
-        want = decide_and_match_plain(*case)
+        got = (got[0].full(), got[1].full(), *got[2:])
+        want = decide_and_match_plain(*case, **seg)
         err = 0
-        for name, g, w in zip(("decision", "upsync", "counts"), got, want):
+        for name, g, w in zip(("decision", "upsync", "counts", "seg_counts"), got, want):
             if g.dtype != w.dtype or g.shape != w.shape:
                 fail(f"sharded {label} over {spec}: {name} is {g.dtype}{tuple(g.shape)}, "
                      f"plain {w.dtype}{tuple(w.shape)}")
@@ -231,33 +365,45 @@ def sharded_kernel_phase(rng, torch, dev, card: str) -> dict:
                  f"(max abs err {err})")
         if int(want[0].ne(0).sum()) == 0 or int(want[2].sum()) == 0:
             fail(f"sharded {label} over {spec}: vacuous case")
-        call_ms = time_ms(lambda: decide_and_match_sharded(mesh, *args), torch, 30)
-        one_ms = time_ms(lambda: decide_and_match(*case), torch, 30)
-        plain_ms = time_ms(lambda: decide_and_match_plain(*case), torch, 10)
-        _wall, ev = device_profile(
-            lambda: [decide_and_match_sharded(mesh, *args) for _ in range(20)], torch)
-        dev_us = [us / 20 for k, (_n, us) in ev.items() if "decide_match_kernel" in k]
-        ms = dev_us[0] / 1e3 if dev_us else call_ms
+        call_ms = time_ms(lambda: decide_and_match_sharded(mesh, *args, **seg), torch, 30)
+        one_ms = time_ms(lambda: decide_and_match(*case, **seg), torch, 30)
+        plain_ms = time_ms(lambda: decide_and_match_plain(*case, **seg), torch, 10)
         bound_ms, bound_by, nbytes = bound(case, want, shards=rf)
-        print(f"kernel decide_and_match_sharded [{label}: B={sh['b']} S={sh['s']} mask=row "
-              f"L={sh['l']} C={sh['c']}, mesh {spec} on {rf} row shards x "
-              f"{pm.slot_factor(mesh)} slot shards of {dev}]: equal (tolerance: exact); "
-              f"{per_call} launches per call; kernel {ms:.4f} ms on the device per call "
-              f"({'profiler, sum of the shards' if dev_us else 'events: profiler saw no device time'}), "
+        text = (f"decide_and_match_sharded [{label}: B={sh['b']} S={sh['s']} mask=row "
+                f"L={sh['l']} C={sh['c']}{', fleet form' if fleet else ''}, mesh {spec} on "
+                f"{rf} row shards x {pm.slot_factor(mesh)} slot shards of {dev}]")
+        print(f"kernel {text}: equal (tolerance: exact); {per_call} launches per call; "
               f"{call_ms:.4f} ms per back-to-back call (events; unsharded kernel "
               f"{one_ms:.4f} ms in this run), plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {bound_ms / ms * 100:.1f}% of "
-              f"the bound rate); library call: none [{card}]")
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B); library call: none [{card}]")
         if label == "serving" and spec == "4":
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            record = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
+        timed.append((f"{text}, the {rf} launches summed",
+                      lambda mesh=mesh, args=args, seg=seg:
+                      decide_and_match_sharded(mesh, *args, **seg),
+                      bound_ms, call_ms, record if label == "serving" and spec == "4" else None))
         torch.cuda.synchronize()
     return record
 
 
-def sharded_step_phase(torch, dev, card: str, b: int = 131072, s: int = 64) -> None:
+def assert_no_index_add(step, what: str) -> None:
+    """Run ``step()`` once under the profiler's CPU activity: the fleet
+    step must call no ``index_add_`` (its segment count is the kernel's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step()
+        torch.cuda.synchronize()
+    if any(e.key == "aten::index_add_" for e in prof.key_averages()):
+        fail(f"{what}: the fleet step called index_add_")
+
+
+def sharded_step_phase(torch, dev, card: str, b: int = 131072, s: int = 64):
     """4b. reconcile_step_fleet over a 4-shard state against the unsharded
-    step on the same card: byte-equal wires, the phase-4 ticks."""
+    step on the same card: byte-equal wires, the phase-4 ticks. Returns
+    the sharded step, for the ``index_add_`` check after the main path."""
     from kcp_tpu_torch.models import reconcile_model as tm
     from kcp_tpu_torch.parallel.mesh import FLAGS, ShardedTensor, shard_state
 
@@ -293,6 +439,7 @@ def sharded_step_phase(torch, dev, card: str, b: int = 131072, s: int = 64) -> N
           f"{dev}) wire == unsharded card wire, 2 ticks at B={b} S={s} (acks, mask+segment "
           f"stamps, overflow tick); device step {sh_ms:.4f} ms sharded vs {one_ms:.4f} ms "
           f"unsharded, incl. upload [{card}]")
+    return lambda: step(sh, mesh=mesh)
 
 
 def main_path_phase(core, torch, counter, per_tick: int, card: str, label: str,
@@ -435,11 +582,7 @@ def main() -> None:
     from kcp_tpu_torch.bench import closed_loop
     from kcp_tpu_torch.models import reconcile_model as tm
     from kcp_tpu_torch.ops import cuda_kernels
-    from kcp_tpu_torch.ops.cuda_kernels import (
-        decide_and_match,
-        decide_and_match_plain,
-        decide_and_match_sharded,
-    )
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match, decide_and_match_sharded
     from kcp_tpu_torch.syncer.core import FusedCore
     from kcp_tpu_torch.utils.trace import REGISTRY
 
@@ -461,65 +604,14 @@ def main() -> None:
             if "registers" in line or "Compiling" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    # ---- 3. kernel vs plain, exact equality, three shapes
-    shapes = [
-        ("serving", SERVING),
-        ("example", dict(b=8192, s=64, l=8, c=64, per_row=False)),
-        ("ragged", dict(b=131071, s=64, l=1, c=8, per_row=True)),
-    ]
-    rng = np.random.default_rng(2024)
-    record = None
-    for name, sh in shapes:
-        if name == "example":
-            st = tm.example_state(b=sh["b"], s=sh["s"], l=sh["l"], c=sh["c"], seed=3,
-                                  dirty_frac=0.03)
-            upe = rng.random(sh["b"]) >= 0.02
-            dne = rng.random(sh["b"]) >= 0.02
-            pair = np.asarray(st.pair_hashes).copy()
-            pair[rng.random(sh["b"]) < 0.3, 0] = st.sel_hashes[0]
-            case = tuple(tm.to_device(a, dev) for a in (
-                st.up_vals, upe, st.down_vals, dne, st.status_mask, pair, st.sel_hashes))
-        else:
-            case = kernel_case(rng, sh["b"], sh["s"], sh["l"], sh["c"], sh["per_row"],
-                               torch, dev)
-        got = decide_and_match(*case)
-        torch.cuda.synchronize()
-        want = decide_and_match_plain(*case)
-        torch.cuda.synchronize()
-        err = 0
-        for label, g, w in zip(("decision", "upsync", "counts"), got, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                fail(f"{name}: {label} is {g.dtype}{tuple(g.shape)}, plain "
-                     f"{w.dtype}{tuple(w.shape)}")
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-        if err:
-            fail(f"{name}: kernel differs from the plain version (max abs err {err})")
-        if int(want[0].ne(0).sum()) == 0 or int(want[2].sum()) == 0:
-            fail(f"{name}: vacuous case (no decisions or no selector hits)")
-        call_ms = time_ms(lambda: decide_and_match(*case), torch, 50)
-        plain_ms = time_ms(lambda: decide_and_match_plain(*case), torch, 10)
-        # the kernel's own device time (the back-to-back call time above
-        # also holds the wrapper's launch cost where that is longer)
-        _wall, ev = device_profile(
-            lambda: [decide_and_match(*case) for _ in range(20)], torch)
-        dev_us = [us / n for k, (n, us) in ev.items() if "decide_match_kernel" in k]
-        ms = dev_us[0] / 1e3 if dev_us else call_ms
-        bound_ms, bound_by, nbytes = bound(case, got)
-        print(f"kernel decide_and_match [{name}: B={sh['b']} S={sh['s']} "
-              f"mask={'row' if sh['per_row'] else 'bucket'} L={sh['l']} C={sh['c']}]: "
-              f"equal (tolerance: exact); kernel {ms:.4f} ms on the device "
-              f"({'profiler' if dev_us else 'events: profiler saw no device time'}), "
-              f"{call_ms:.4f} ms per back-to-back call (events), plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, "
-              f"{bound_ms / ms * 100:.1f}% of the bound rate); library call: "
-              f"none (no single PyTorch call computes this function) [{card}]")
-        if name == "serving":
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        torch.cuda.synchronize()
+    # ---- 3. kernel vs plain, exact equality; the tile plans. No profiler
+    #          runs before the main path (5, 5b): the kernels' device
+    #          times and the index_add_ checks come after it.
+    timed = []
+    record = kernel_phase(np.random.default_rng(2024), torch, dev, card, timed)
 
     # ---- 3b. the sharded kernel against the plain version
-    record_sharded = sharded_kernel_phase(rng, torch, dev, card)
+    record_sharded = sharded_kernel_phase(np.random.default_rng(2025), torch, dev, card, timed)
 
     # ---- 4. device step vs CPU step, byte-equal wires
     b, s = 131072, 64
@@ -541,16 +633,19 @@ def main() -> None:
             fail(f"step tick {tick}: card wire != CPU wire at {diff[:10].tolist()}")
         if bool(outs[0][1]) != (cap == 256):
             fail(f"step tick {tick}: overflow flag {bool(outs[0][1])} at capacity {cap}")
-    step_ms = time_ms(lambda: tm.reconcile_step_fleet(
-        gpu[0], gpu[1], tm.to_device(packed, dev), tm.to_device(acks, dev),
-        patch_capacity=8192, seg_capacity=8), torch, 20)
+
+    def card_step():
+        tm.reconcile_step_fleet(gpu[0], gpu[1], tm.to_device(packed, dev),
+                                tm.to_device(acks, dev), patch_capacity=8192, seg_capacity=8)
+
+    step_ms = time_ms(card_step, torch, 20)
     print(f"step: reconcile_step_fleet card wire == CPU wire, 2 ticks at B={b} S={s} "
           f"(acks, mask+segment stamps, overflow tick); device step {step_ms:.4f} ms "
           f"incl. upload [{card}]")
-    del gpu, cpu
+    del cpu
 
     # ---- 4b. sharded step vs unsharded card step, byte-equal wires
-    sharded_step_phase(torch, dev, card, b, s)
+    sharded_step = sharded_step_phase(torch, dev, card, b, s)
 
     # ---- 5. main path: closed loop through FusedCore, fleet on, double
     core = FusedCore(batch_window=0.0005)
@@ -568,6 +663,14 @@ def main() -> None:
         sharded_core, torch, decide_and_match_sharded, SMOKE_SHARDS, card,
         "main path, sharded (mesh 4)")
 
+    # ---- 3, 3b: the kernels' device times; 4, 4b: no index_add_ in either
+    #          step (profiled, so after the main path's readings)
+    device_times(timed, card)
+    assert_no_index_add(card_step, "step")
+    assert_no_index_add(sharded_step, "sharded step")
+    print("step, sharded step: no index_add_ (profiler, CPU activity)")
+    del gpu, sharded_step
+
     # ---- 5c. where the device time goes: a short profiled closed loop
     #          (after the counts above were read; not part of the record)
     prof_core = FusedCore(batch_window=0.0005)
@@ -577,9 +680,11 @@ def main() -> None:
     busy_us = sum(us for _n, us in ev.values())
     if busy_us:
         top = sorted(ev.items(), key=lambda kv: -kv[1][1])[:6]
+        index_add = sum(n for k, (n, _us) in ev.items() if "indexFuncLargeIndex" in k)
         print(f"profiled loop: {prof_out['ticks']} ticks, wall {wall:.2f} s, device busy "
               f"{busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall * 100:.1f}% (sum of device "
-              f"event time / wall), idle {100 - busy_us / 1e6 / wall * 100:.1f}%; top: "
+              f"event time / wall), idle {100 - busy_us / 1e6 / wall * 100:.1f}%; "
+              f"indexFuncLargeIndex events: {index_add}; top: "
               + "; ".join(f"{k[:60]} x{n} {us / 1e3:.1f} ms" for k, (n, us) in top)
               + f" [{card}]")
     else:
@@ -597,6 +702,9 @@ def main() -> None:
                           source="kcp_tpu_torch/csrc/decide_match.cu",
                           replaces="kcp_tpu/ops/pallas_kernels.py:223",
                           launches=launches_sharded, library_ms=None)
+    print("recorded before the redesign, not measured in this run (PERF.md §6): "
+          + ", ".join(f"{r['name']} {RECORDED_EARLIER_MS[r['name']]} ms on the device "
+                      f"against {r['ms']:.4f} ms now" for r in (record, record_sharded)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -121,6 +121,15 @@ def reconcile_step(state: ReconcileState, deltas: ReconcileDeltas,
         _sharded(state, mesh)
         sh = _step_sharded(state, deltas, patch_capacity)
         return sh.state, sh.outputs()
+    new_state, outputs, _seg = _step(state, deltas, patch_capacity)
+    return new_state, outputs
+
+
+def _step(state: ReconcileState, deltas: ReconcileDeltas, patch_capacity: int,
+          seg_ids: torch.Tensor | None = None, seg_capacity: int = 8,
+          ) -> tuple[ReconcileState, ReconcileOutputs, torch.Tensor | None]:
+    """The unsharded step; with ``seg_ids`` the kernel's fleet form also
+    gives the per-segment live-row counts (else None)."""
     i32 = torch.int32
     # 1. scatter deltas, routed by side (apply_deltas owns the padding-
     #    drop and unique-index contract)
@@ -132,10 +141,13 @@ def reconcile_step(state: ReconcileState, deltas: ReconcileDeltas,
         deltas.vals, deltas.exists, deltas.valid & deltas.side)
 
     # 2+4. decision lanes and fan-out counts in one pass (only resident
-    #      upstream objects fan out)
-    decision, status_upsync, match_counts = decide_and_match(
+    #      upstream objects fan out); the fleet form adds the per-segment
+    #      live-row counts of the scattered state
+    lanes = decide_and_match(
         up_vals, up_exists, down_vals, down_exists, state.status_mask,
-        state.pair_hashes, state.sel_hashes)
+        state.pair_hashes, state.sel_hashes, seg_ids,
+        None if seg_ids is None else seg_capacity)
+    decision, status_upsync, match_counts = lanes[:3]
 
     # 3. splitter lane
     leaf = split_replicas(state.replicas, state.avail)
@@ -163,7 +175,7 @@ def reconcile_step(state: ReconcileState, deltas: ReconcileDeltas,
         leaf_replicas=leaf, placement_dirty=p_dirty,
         match_counts=match_counts, stats=stats,
     )
-    return new_state, outputs
+    return new_state, outputs, (lanes[3] if seg_ids is not None else None)
 
 
 # ---------------------------------------------------------------------------
@@ -249,13 +261,19 @@ def apply_mask_stamps(status_mask: torch.Tensor, packed: torch.Tensor) -> torch.
 def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
                           acks: torch.Tensor | None = None,
                           patch_capacity: int = 8192, mesh=None,
+                          seg_ids: torch.Tensor | None = None,
+                          seg_capacity: int = 8,
                           ) -> tuple[ReconcileState, torch.Tensor]:
     """The wire-format step: one int32 [D, S+2] array in (a bit view of
     the uint32 wire), one int32 array out.
 
     ``acks`` is the converged-row compression lane: int32 row indices
     (negative = padding) whose downstream mirror becomes a copy of the
-    resident upstream mirror; the copy runs before the delta scatter."""
+    resident upstream mirror; the copy runs before the delta scatter.
+
+    With ``seg_ids`` (the fleet's row->segment lane, already stamped; a
+    ShardedTensor on a mesh) the wire grows the tail of ``seg_capacity``
+    per-segment live-row counts, from the kernel's fleet form."""
     b = state.up_vals.shape[0]
     if b > PACK_IDX_MASK + 1:
         raise ValueError(
@@ -265,8 +283,10 @@ def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
     if mesh is not None:
         _sharded(state, mesh)
         sh = _step_sharded(state, unpack_deltas(packed.to(mesh.lead)),
-                           patch_capacity, packed=packed, acks=acks)
-        return sh.state, sh.wire()
+                           patch_capacity, packed=packed, acks=acks,
+                           seg_ids=seg_ids, seg_capacity=seg_capacity)
+        wire = sh.wire()
+        return sh.state, wire if seg_ids is None else torch.cat([wire, sh.seg_counts])
     if acks is not None and b > 0:
         # padding (-1) must not scatter AT ALL: scatter_rows_drop routes
         # it to a no-op write instead of clipping it onto row 0
@@ -275,10 +295,12 @@ def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
         scatter_rows_drop(state.down_vals, acks, state.up_vals[gather], valid)
         scatter_rows_drop(state.down_exists, acks, state.up_exists[gather], valid)
     apply_mask_stamps(state.status_mask, packed)
-    new_state, out = reconcile_step(state, unpack_deltas(packed), patch_capacity)
-    return new_state, _pack_wire(out.patch_idx, out.patch_code, out.patch_upsync,
-                                 out.patch_count, out.patch_overflow, out.stats,
-                                 out.placement_dirty, out.leaf_replicas)
+    new_state, out, seg_counts = _step(state, unpack_deltas(packed), patch_capacity,
+                                       seg_ids, seg_capacity)
+    wire = _pack_wire(out.patch_idx, out.patch_code, out.patch_upsync,
+                      out.patch_count, out.patch_overflow, out.stats,
+                      out.placement_dirty, out.leaf_replicas)
+    return new_state, wire if seg_counts is None else torch.cat([wire, seg_counts])
 
 
 def _pack_wire(patch_idx, patch_code, patch_upsync, patch_count, patch_overflow,
@@ -334,24 +356,17 @@ def reconcile_step_fleet(state: ReconcileState, seg_ids: torch.Tensor,
                          mesh=None,
                          ) -> tuple[ReconcileState, torch.Tensor, torch.Tensor]:
     """:func:`reconcile_step_packed` plus the resident segment lane and
-    the per-segment live-row counters on the wire tail. Out-of-range
+    the per-segment live-row counters on the wire tail, which the kernel's
+    fleet form counts in the same pass as the decisions. Out-of-range
     segment ids (padding, unowned rows) drop out of the count. With
     ``mesh=``, ``seg_ids`` is a row-sharded ShardedTensor like the
     state's flags."""
-    if mesh is not None:
-        _sharded(state, mesh)
-        sh = _step_sharded(state, unpack_deltas(packed.to(mesh.lead)),
-                           patch_capacity, packed=packed, acks=acks,
-                           seg_ids=seg_ids, seg_capacity=seg_capacity)
-        return sh.state, seg_ids, torch.cat([sh.wire(), sh.seg_counts])
-    apply_seg_stamps(seg_ids, packed)
-    new_state, wire = reconcile_step_packed(state, packed, acks, patch_capacity)
-    cap = seg_capacity
-    seg = torch.where(seg_ids < 0, seg_ids + cap, seg_ids)
-    seg = torch.where((seg >= 0) & (seg < cap), seg, cap)
-    counts = torch.zeros(cap + 1, dtype=torch.int32, device=seg_ids.device)
-    counts.index_add_(0, seg.long(), new_state.up_exists.to(torch.int32))
-    return new_state, seg_ids, torch.cat([wire, counts[:cap]])
+    if mesh is None:  # the sharded step stamps each shard's block itself
+        apply_seg_stamps(seg_ids, packed)
+    new_state, wire = reconcile_step_packed(state, packed, acks, patch_capacity,
+                                            mesh=mesh, seg_ids=seg_ids,
+                                            seg_capacity=seg_capacity)
+    return new_state, seg_ids, wire
 
 
 def unpack_seg_counts(wire: np.ndarray, patch_capacity: int, r: int, p: int,
@@ -676,10 +691,12 @@ def _step_sharded(state: ReconcileState, deltas: ReconcileDeltas,
                 state.status_mask.write_row_block(i, mask)
         kernel_in.append((up, up_ex, down, down_ex, mask,
                           state.pair_hashes.blocks[i][0],
-                          state.sel_hashes.blocks[i][0]))
-    decisions, upsyncs, match_counts = decide_and_match_shards(kernel_in, lead)
+                          state.sel_hashes.blocks[i][0],
+                          *(() if seg_ids is None else (seg_ids.blocks[i][0],))))
+    decisions, upsyncs, match_counts, seg_counts = decide_and_match_shards(
+        kernel_in, lead, None if seg_ids is None else seg_capacity)
 
-    cand_idx, cand_code, cand_up, sums, leaves, dirties, segs = [], [], [], [], [], [], []
+    cand_idx, cand_code, cand_up, sums, leaves, dirties = [], [], [], [], [], []
     for i, (dec, ups) in enumerate(zip(decisions, upsyncs)):
         lo, hi = state.up_vals.bounds[i]
         n = hi - lo
@@ -694,14 +711,6 @@ def _step_sharded(state: ReconcileState, deltas: ReconcileDeltas,
             up_ex.sum(dtype=i32), (dec == 1).sum(dtype=i32),
             (dec == 2).sum(dtype=i32), (dec == 3).sum(dtype=i32),
             ups.sum(dtype=i32), act.sum(dtype=i32)]).to(lead))
-        if seg_ids is not None:
-            cap = seg_capacity
-            seg = seg_ids.blocks[i][0]
-            seg = torch.where(seg < 0, seg + cap, seg)
-            seg = torch.where((seg >= 0) & (seg < cap), seg, cap)
-            cnt = torch.zeros(cap + 1, dtype=i32, device=seg.device)
-            cnt.index_add_(0, seg.long(), up_ex.to(i32))
-            segs.append(cnt[:cap].to(lead))
         if n == 0:
             continue
         # this shard's first min(K, n) actionable rows, in row order
@@ -740,5 +749,4 @@ def _step_sharded(state: ReconcileState, deltas: ReconcileDeltas,
         patch_idx=patch_idx.to(i32), patch_code=patch_code, patch_upsync=patch_up,
         patch_count=total.clamp(max=k), patch_overflow=total > k, stats=stats,
         decisions=decisions, upsyncs=upsyncs, leaf=leaf, dirty=dirty,
-        match_counts=match_counts,
-        seg_counts=torch.stack(segs).sum(dim=0, dtype=i32) if segs else None)
+        match_counts=match_counts, seg_counts=seg_counts)
