@@ -44,7 +44,30 @@ Phases, each fatal on failure:
 6. engine path — ``start_syncer`` over two ``LogicalStore``s on the card,
    without a mesh and on ``"4"``: 16,384 labelled ConfigMaps across 64
    namespaces, then an update, a delete and a downstream status write
-   that must reach upstream; both runs must end with equal dumps.
+   that must reach upstream; both runs must end with equal dumps;
+7. controller plane — ``kcp_tpu_torch.demo.controller_plane_load`` on
+   the card: ``NegotiationController(auto_publish=True)``,
+   ``CRDLifecycleController``, ``ClusterController(PUSH,
+   ["deployments.apps"])`` and ``DeploymentSplitter``, all with
+   ``device=None``, over 16 logical clusters that each register the same
+   4 fake physical clusters (64 push syncers on one ``FusedCore``, a
+   ``FakeClusterAgent`` per physical cluster) and 256 root Deployments
+   per logical cluster, seeded replicas in 1..100: every import
+   Compatible and Available, every cluster Ready, every one of the
+   16,384 leaves downstream with the CPU ``split_replicas`` count, every
+   root's readyReplicas aggregated, all 4,096 roots through the fused
+   placement lanes, ``decide_and_match`` launched, nothing quarantined;
+   then, for the window from the first root to the last aggregated, the
+   fleet ticks, the core's seconds in each tick phase, and the process's
+   CPU seconds against the window's wall time;
+7b. the two demo scenarios through the port on the card, unsharded and
+   with the controllers on mesh ``"4"`` over ``cuda:0``: both
+   transcripts equal ``contrib/demo/demo.result`` line for line, and each
+   run launched its kernel (``decide_and_match_sharded`` on the mesh).
+
+Phases 7 and 7b run right after 5b, before the profiler of 5c, so that
+their host-clock readings, like those of 5 and 5b, follow no profiler
+session.
 
 The line before the last is the kernels' JSON record, every number in
 it measured in this run (``bound_ms`` computed from this run's inputs);
@@ -73,6 +96,9 @@ RECORDED_EARLIER_MS = {"decide_and_match": 0.0661, "decide_and_match_sharded": 0
 SMOKE_SHARDS = 4  # row shards of the smoke meshes, all on cuda:0
 ENGINE_OBJECTS = 16384  # phase 6 (cut from 131,072 for the time limit)
 ENGINE_NAMESPACES = 64
+# phase 7: logical clusters (cut from 10,000 for the time limit), fake
+# physical clusters per logical cluster, root Deployments per logical cluster
+PLANE_LOGICAL, PLANE_PHYSICAL, PLANE_ROOTS = 16, 4, 256
 
 
 def fail(msg: str) -> None:
@@ -573,6 +599,71 @@ def engine_phase(torch, dev, card: str, n: int = ENGINE_OBJECTS,
     print(f"engine path: final dumps equal with and without the mesh ({n - 1} objects)")
 
 
+def controller_plane_phase(torch, dev, card: str) -> None:
+    """7. The controller plane at a platform team's size on the card;
+    ``kcp_tpu_torch.demo.controller_plane_load`` checks the result and
+    raises on the first check that fails."""
+    from kcp_tpu_torch import demo
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match
+
+    decide_and_match.launches = 0
+    try:
+        out = asyncio.run(demo.controller_plane_load(
+            None, None, PLANE_LOGICAL, PLANE_PHYSICAL, PLANE_ROOTS, seed=7))
+    except RuntimeError as err:
+        fail(f"controller plane: {err}")
+    torch.cuda.synchronize()
+    launches = decide_and_match.launches
+    if launches == 0:
+        fail("controller plane: decide_and_match never launched")
+    window = out["aggregated_s"]
+    in_ticks = sum(out["tick_phases_s"].values())
+    print(f"controller plane: {out['physical']} physical clusters, each registered by all "
+          f"{out['logical']} logical clusters ({out['syncers']} push syncers on one "
+          f"FusedCore), {out['roots']} roots -> {out['leaves']} leaves; every import "
+          f"Compatible+Available, every cluster Ready {out['ready_s']:.2f} s after "
+          f"registration; first root created -> last leaf downstream {out['leaves_s']:.2f} s, "
+          f"-> last root aggregated {window:.2f} s; fused placements "
+          f"{out['fused_placements']}, host placements 0, aggregations {out['aggregations']}; "
+          f"leaves equal the CPU split; decide_and_match launches {launches}; nothing "
+          f"quarantined [{card}]")
+    print(f"controller plane window: {out['ticks']} fleet ticks, "
+          f"{window * 1e3 / max(out['ticks'], 1):.1f} ms of window per tick; tick phases "
+          f"{in_ticks:.3f} s in all ("
+          + " ".join(f"{k}={v:.3f}s" for k, v in sorted(out["tick_phases_s"].items()))
+          + f"), outside the ticks {window - in_ticks:.3f} s; process CPU {out['cpu_s']:.3f} s "
+          f"= {out['cpu_s'] / window * 100:.1f}% of the window [{card}]")
+
+
+def demo_phase(torch, dev, card: str) -> None:
+    """7b. The two demo scenarios through the port on the card, without a
+    mesh and on mesh "4" over the card: each transcript equals
+    contrib/demo/demo.result, and each run launched its kernel."""
+    from kcp_tpu_torch import demo
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match, decide_and_match_sharded
+
+    want = demo.golden()
+    for spec, counter in ((None, decide_and_match), ("4", decide_and_match_sharded)):
+        mesh = None if spec is None else smoke_mesh(spec, dev)
+        counter.launches = 0
+        t0 = time.perf_counter()
+        try:
+            got = asyncio.run(demo.run("all", None, mesh))
+        except RuntimeError as err:
+            fail(f"demo (mesh {spec}): {err}")
+        torch.cuda.synchronize()
+        launches = counter.launches
+        bad = demo.diff(want, got)
+        if bad:
+            fail(f"demo (mesh {spec}): transcript differs from demo.result:\n"
+                 + "\n".join(bad))
+        if launches == 0:
+            fail(f"demo (mesh {spec}): {counter.__name__} never launched")
+        print(f"demo: apiNegotiation + kubecon, mesh={spec or 'none'}: {len(got)} lines "
+              f"equal contrib/demo/demo.result in {time.perf_counter() - t0:.2f} s; "
+              f"{counter.__name__} launches {launches} [{card}]")
+
+
 def main() -> None:
     import torch
 
@@ -662,6 +753,12 @@ def main() -> None:
     _out_s, launches_sharded = main_path_phase(
         sharded_core, torch, decide_and_match_sharded, SMOKE_SHARDS, card,
         "main path, sharded (mesh 4)")
+
+    # ---- 7. the controller plane at a platform team's size; 7b. the two
+    #          demo scenarios, unsharded and on mesh "4" (before any
+    #          profiler session, like 5 and 5b)
+    controller_plane_phase(torch, dev, card)
+    demo_phase(torch, dev, card)
 
     # ---- 3, 3b: the kernels' device times; 4, 4b: no index_add_ in either
     #          step (profiled, so after the main path's readings)

@@ -98,12 +98,14 @@ class Client:
         transport."""
         if self._store.openapi_doc is not None:
             return self._store.openapi_doc
-        # the reference synthesizes a document from the cluster's CRDs
-        # (apis/crd + crdpuller/openapi): the schema lane, not ported yet
-        raise NotImplementedError(
-            "openapi_v2 from CRDs needs the schema lane (apis/crd, "
-            "crdpuller/openapi), which the port does not have yet "
-            "(ROADMAP A5); attach a document with store.openapi_doc")
+        from ..apis import crd as crdapi
+        from ..crdpuller.openapi import doc_from_crds
+
+        try:
+            crds, _ = self._store.list(crdapi.CRDS.storage_name, self.cluster)
+        except Exception:  # noqa: BLE001 — no CRDs ⇒ empty document
+            crds = []
+        return doc_from_crds(crds) if crds else None
 
 
 class MultiClusterClient(Client):

@@ -1,0 +1,402 @@
+"""The two demo scenarios through the port's controller plane (the
+port's counterpart of ``contrib/demo/run_demo.py``).
+
+Both run in-process against fake physical clusters and print the same
+normalised transcript as ``contrib/demo/run_demo.py``; ``--check`` compares it
+line for line with the committed ``contrib/demo/demo.result`` (read only).
+
+- ``apiNegotiation``: register us-east1, import, publish, CRD
+  established; register us-west1 with a narrower schema and observe
+  Compatible=False on its import.
+- ``kubecon``: register two clusters, create a root Deployment, watch it
+  split, sync down, and aggregate status back up.
+
+The push syncers and the splitter share the loop's ``FusedCore`` on
+``--device`` (the CUDA card by default); ``--mesh SPEC`` shards it over
+that many copies of the device (``"4"``, ``"4x2"``).
+
+Usage:
+    python -m kcp_tpu_torch.demo [apiNegotiation|kubecon|all] [--check]
+                                 [--device cpu] [--mesh 4x2]
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import math
+import os
+import sys
+
+import torch
+
+from .apis import apiresource as ar
+from .apis import cluster as clusterapi
+from .apis import conditions as cond
+from .apis import crd as crdapi
+from .client import MultiClusterClient
+from .parallel.mesh import mesh_from_spec
+from .physical import FakeClusterAgent, PhysicalRegistry
+from .reconcilers.apiresource import NegotiationController
+from .reconcilers.cluster import ClusterController, SyncerMode
+from .reconcilers.crdlifecycle import CRDLifecycleController
+from .reconcilers.deployment import DeploymentSplitter
+from .reconcilers.deployment.controller import is_root
+from .store import LogicalStore
+from .utils.device import resolve_device
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                      "contrib", "demo", "demo.result")
+SCENARIOS = ("apiNegotiation", "kubecon")
+
+
+async def eventually(pred, timeout=20.0, desc="condition"):
+    loop = asyncio.get_running_loop()
+    end = loop.time() + timeout
+    last = None
+    while loop.time() < end:
+        try:
+            last = pred()
+            if last:
+                return last
+        except Exception as e:  # noqa: BLE001
+            last = repr(e)
+        await asyncio.sleep(0.02)
+    raise RuntimeError(f"demo timed out waiting for {desc} (last={last!r})")
+
+
+class ControlPlane:
+    """One in-process control plane with all controllers running on one
+    device (and mesh)."""
+
+    def __init__(self, device=None, mesh=None):
+        self.store = LogicalStore()
+        self.client = MultiClusterClient(self.store)
+        self.registry = PhysicalRegistry()
+        self.negotiation = NegotiationController(
+            self.client, auto_publish=True, device=device)
+        self.lifecycle = CRDLifecycleController(self.client)
+        self.clusters = ClusterController(
+            self.client, self.registry, resources_to_sync=["deployments.apps"],
+            mode=SyncerMode.PUSH, poll_interval=0.2, import_poll_interval=0.2,
+            device=device, mesh=mesh,
+        )
+        self.splitter = DeploymentSplitter(self.client, device=device, mesh=mesh)
+        self.agents: list[FakeClusterAgent] = []
+
+    async def start(self):
+        await self.negotiation.start()
+        await self.lifecycle.start()
+        await self.clusters.start()
+        await self.splitter.start()
+
+    async def add_physical(self, name: str) -> None:
+        client = self.registry.resolve(f"fake://{name}")
+        agent = FakeClusterAgent(client)
+        await agent.start()
+        self.agents.append(agent)
+
+    async def stop(self):
+        for a in self.agents:
+            await a.stop()
+        await self.splitter.stop()
+        await self.clusters.stop()
+        await self.lifecycle.stop()
+        await self.negotiation.stop()
+
+
+async def demo_api_negotiation(emit, device=None, mesh=None) -> None:
+    emit("=== demo: apiNegotiation ===")
+    cp = ControlPlane(device, mesh)
+    await cp.start()
+    await cp.add_physical("us-east1")
+    t = cp.client.cluster_client("admin")
+
+    emit("$ kubectl apply cluster us-east1")
+    t.create(clusterapi.CLUSTERS, clusterapi.new_cluster("us-east1", "fake://us-east1"))
+    await eventually(
+        lambda: ar.is_compatible_and_available(
+            t.get(ar.APIRESOURCEIMPORTS, "us-east1.deployments.v1.apps")),
+        desc="us-east1 import compatible+available")
+    emit("apiresourceimport us-east1.deployments.v1.apps: Compatible=True Available=True")
+    await eventually(lambda: crdapi.is_established(t.get(crdapi.CRDS, "deployments.apps")),
+                     desc="deployments CRD established")
+    emit("crd deployments.apps: Established=True")
+    await eventually(lambda: clusterapi.is_ready(t.get(clusterapi.CLUSTERS, "us-east1")),
+                     desc="us-east1 Ready")
+    emit("cluster us-east1: Ready=True syncedResources="
+         + ",".join(clusterapi.synced_resources(t.get(clusterapi.CLUSTERS, "us-east1"))))
+
+    emit("$ kubectl apply cluster us-west1 (narrower deployment schema)")
+    # us-west1's fake cluster serves a deployments CRD whose spec.replicas
+    # is a string -> incompatible with the negotiated integer schema
+    west = cp.registry.resolve("fake://us-west1")
+    bad = crdapi.new_crd("apps", "v1", "deployments", "Deployment", schema={
+        "type": "object",
+        "properties": {"spec": {"type": "object", "properties": {
+            "replicas": {"type": "string"}}}},
+    })
+    west.create(crdapi.CRDS, bad)
+    await cp.add_physical("us-west1")
+    t.create(clusterapi.CLUSTERS, clusterapi.new_cluster("us-west1", "fake://us-west1"))
+
+    imp = await eventually(
+        lambda: (lambda o: cond.find_condition(o, ar.COMPATIBLE) is not None and o)(
+            t.get(ar.APIRESOURCEIMPORTS, "us-west1.deployments.v1.apps")),
+        desc="us-west1 import processed")
+    c = cond.find_condition(imp, ar.COMPATIBLE)
+    emit(f"apiresourceimport us-west1.deployments.v1.apps: Compatible={c['status']}"
+         f" reason={c.get('reason', '')}")
+    await cp.stop()
+
+
+async def demo_kubecon(emit, device=None, mesh=None) -> None:
+    emit("=== demo: kubecon ===")
+    cp = ControlPlane(device, mesh)
+    await cp.start()
+    await cp.add_physical("east")
+    await cp.add_physical("west")
+    t = cp.client.cluster_client("kubecon")
+
+    emit("$ kubectl apply cluster east west")
+    t.create(clusterapi.CLUSTERS, clusterapi.new_cluster("east", "fake://east"))
+    t.create(clusterapi.CLUSTERS, clusterapi.new_cluster("west", "fake://west"))
+    await eventually(lambda: clusterapi.is_ready(t.get(clusterapi.CLUSTERS, "east"))
+                     and clusterapi.is_ready(t.get(clusterapi.CLUSTERS, "west")),
+                     desc="both clusters ready")
+    emit("cluster east: Ready=True")
+    emit("cluster west: Ready=True")
+
+    emit("$ kubectl apply deployment demo replicas=10")
+    t.create("deployments.apps", {
+        "apiVersion": "apps/v1", "kind": "Deployment",
+        "metadata": {"name": "demo", "namespace": "default"},
+        "spec": {"replicas": 10,
+                 "selector": {"matchLabels": {"app": "demo"}},
+                 "template": {"metadata": {"labels": {"app": "demo"}},
+                              "spec": {"containers": [{"name": "demo", "image": "x"}]}}},
+    })
+    east = cp.registry.resolve("fake://east")
+    west = cp.registry.resolve("fake://west")
+    await eventually(lambda: east.get("deployments.apps", "demo--east", "default"),
+                     desc="east physical deployment")
+    await eventually(lambda: west.get("deployments.apps", "demo--west", "default"),
+                     desc="west physical deployment")
+    e = east.get("deployments.apps", "demo--east", "default")["spec"]["replicas"]
+    w = west.get("deployments.apps", "demo--west", "default")["spec"]["replicas"]
+    emit(f"deployment demo--east synced to east with replicas={e}")
+    emit(f"deployment demo--west synced to west with replicas={w}")
+    await eventually(
+        lambda: t.get("deployments.apps", "demo", "default")
+        .get("status", {}).get("readyReplicas") == 10,
+        desc="root status aggregation")
+    st = t.get("deployments.apps", "demo", "default")["status"]
+    emit(f"deployment demo status: replicas={st['replicas']} ready={st['readyReplicas']}"
+         f" available={st['availableReplicas']}")
+    await cp.stop()
+
+
+def _tick_phase_totals() -> dict[str, float]:
+    """Seconds spent so far in each tick phase of the fused core (the
+    ``fused_<phase>_seconds`` histograms)."""
+    from .utils.trace import REGISTRY
+
+    return {k[6:-8]: v["count"] * v["mean"] for k, v in REGISTRY.snapshot().items()
+            if k.startswith("fused_") and k.endswith("_seconds") and isinstance(v, dict)}
+
+
+async def controller_plane_load(device=None, mesh=None, n_logical: int = 16,
+                                n_physical: int = 4, roots: int = 256, seed: int = 0,
+                                timeout: float = 300.0) -> dict:
+    """The demo's control plane at a platform team's size: ``n_physical``
+    fake physical clusters, each registered by every one of ``n_logical``
+    logical clusters (one push syncer per registration, all on the loop's
+    one ``FusedCore``), and ``roots`` root Deployments per logical cluster
+    with seeded replicas in 1..100.
+
+    Each logical cluster names its registration of physical cluster ``j``
+    ``<lc>-pc-<j>``. A push syncer owns, downstream, the objects labelled
+    with its Cluster's name, so two logical clusters that gave a shared
+    physical cluster the same Cluster name would delete each other's
+    leaves (the reference does the same).
+
+    Checks every import Compatible and Available, every cluster Ready,
+    every leaf downstream with the replicas of ``ops/placement.
+    split_replicas`` on the CPU, every root's aggregated readyReplicas
+    equal to its replicas, every root placed through the fused lane, and
+    no row quarantined; raises RuntimeError on the first that fails.
+    Returns the readings, among them the window from the first root
+    created to the last root aggregated: its fleet ticks, the seconds the
+    core spent in each tick phase, and the process's CPU seconds."""
+    import time
+
+    import numpy as np
+
+    from .ops.placement import split_replicas
+    from .utils.trace import REGISTRY
+
+    rng = np.random.default_rng(seed)
+    lcs = [f"lc-{i:02d}" for i in range(n_logical)]
+    pcs = [f"pc-{j}" for j in range(n_physical)]  # fake://pc-j, shared by every lc
+    replicas = rng.integers(1, 101, (n_logical, roots)).astype(np.int32)
+    # the CPU split every leaf must carry: all pcs registered everywhere
+    want = split_replicas(torch.from_numpy(replicas.reshape(-1)),
+                          torch.ones(n_logical * roots, n_physical, dtype=torch.bool)
+                          ).numpy().reshape(n_logical, roots, n_physical)
+    quarantined0 = REGISTRY.counter("quarantined_rows").value
+    cp = ControlPlane(device, mesh)
+    await cp.start()
+    try:
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        for pc in pcs:
+            await cp.add_physical(pc)
+        scoped = {lc: cp.client.cluster_client(lc) for lc in lcs}
+        for lc in lcs:
+            for pc in pcs:
+                scoped[lc].create(clusterapi.CLUSTERS,
+                                  clusterapi.new_cluster(f"{lc}-{pc}", f"fake://{pc}"))
+
+        def all_imports():
+            return all(ar.is_compatible_and_available(
+                scoped[lc].get(ar.APIRESOURCEIMPORTS, f"{lc}-{pc}.deployments.v1.apps"))
+                for lc in lcs for pc in pcs)
+
+        def all_ready():
+            return (len(cp.clusters.syncers) == n_logical * n_physical
+                    and all("deployments.apps" in clusterapi.synced_resources(c)
+                            and clusterapi.is_ready(c)
+                            for lc in lcs for c in scoped[lc].list(clusterapi.CLUSTERS)[0]))
+
+        await eventually(all_imports, timeout, "every import Compatible and Available")
+        await eventually(all_ready, timeout, "every cluster Ready with its push syncer")
+        core = cp.splitter.core
+        if any(e.core is not core for s in cp.clusters.syncers.values() for e in s.engines):
+            raise RuntimeError("a push syncer runs on another FusedCore than the splitter's")
+        t1 = loop.time()
+        cpu1, phases1 = time.process_time(), _tick_phase_totals()
+        ticks0 = core._fleet.stats["ticks"] if core._fleet is not None else 0
+        for i, lc in enumerate(lcs):
+            for k in range(roots):
+                scoped[lc].create("deployments.apps", {
+                    "apiVersion": "apps/v1", "kind": "Deployment",
+                    "metadata": {"name": f"app-{k}", "namespace": "default"},
+                    "spec": {"replicas": int(replicas[i, k]),
+                             "selector": {"matchLabels": {"app": f"app-{k}"}},
+                             "template": {"metadata": {"labels": {"app": f"app-{k}"}},
+                                          "spec": {"containers": [{"name": "app", "image": "x"}]}}},
+                })
+        phys = {pc: cp.registry.resolve(f"fake://{pc}") for pc in pcs}
+        n_leaves = n_logical * roots * n_physical
+
+        def downstream() -> int:
+            return sum(len(c.list("deployments.apps")[0]) for c in phys.values())
+
+        await eventually(lambda: downstream() == n_leaves, timeout, "every leaf downstream")
+        t_leaves = loop.time()
+
+        def aggregated() -> bool:
+            for lc in lcs:
+                for o in scoped[lc].list("deployments.apps")[0]:
+                    if not is_root(o):
+                        continue
+                    if (o.get("status") or {}).get("readyReplicas") != o["spec"]["replicas"]:
+                        return False
+            return True
+
+        await eventually(aggregated, timeout, "every root's readyReplicas aggregated")
+        t_agg = loop.time()
+        cpu_s = time.process_time() - cpu1
+        phases = {k: v - phases1.get(k, 0.0) for k, v in _tick_phase_totals().items()}
+        ticks = (core._fleet.stats["ticks"] if core._fleet is not None else 0) - ticks0
+
+        for j, pc in enumerate(pcs):
+            got = {o["metadata"]["name"]: o["spec"]["replicas"]
+                   for o in phys[pc].list("deployments.apps")[0]}
+            for i, lc in enumerate(lcs):
+                for k in range(roots):
+                    name = f"app-{k}--{lc}-{pc}"
+                    if got.get(name) != int(want[i, k, j]):
+                        raise RuntimeError(
+                            f"leaf {name} on {pc}: replicas {got.get(name)}, "
+                            f"the split says {int(want[i, k, j])}")
+        stats = dict(cp.splitter.stats)
+        if stats["fused_placements"] < n_logical * roots or stats["host_placements"]:
+            raise RuntimeError(f"placements: {stats}")
+        quarantined = REGISTRY.counter("quarantined_rows").value - quarantined0
+        if quarantined:
+            raise RuntimeError(f"{quarantined} rows quarantined")
+        return dict(logical=n_logical, physical=n_physical, roots=n_logical * roots,
+                    leaves=n_leaves, syncers=n_logical * n_physical,
+                    ready_s=t1 - t0, leaves_s=t_leaves - t1, aggregated_s=t_agg - t1,
+                    ticks=ticks, cpu_s=cpu_s,
+                    tick_phases_s={k: v for k, v in phases.items() if v > 0},
+                    fused_placements=stats["fused_placements"],
+                    aggregations=stats["aggregations"])
+    finally:
+        await cp.stop()
+
+
+def demo_mesh(spec: str, device) -> "object | None":
+    """A mesh of ``spec``'s shape over copies of one device (None for an
+    empty spec)."""
+    if not spec:
+        return None
+    n = math.prod(int(x) for x in spec.split("x"))
+    return mesh_from_spec(spec, devices=[resolve_device(device)] * n)
+
+
+async def run(which: str = "all", device=None, mesh=None, echo=False) -> list[str]:
+    """Run the named scenario (or both) and return its transcript."""
+    lines: list[str] = []
+
+    def emit(line: str) -> None:
+        lines.append(line)
+        if echo:
+            print(line, flush=True)
+
+    if which in ("apiNegotiation", "all"):
+        await demo_api_negotiation(emit, device, mesh)
+    if which in ("kubecon", "all"):
+        await demo_kubecon(emit, device, mesh)
+    return lines
+
+
+def golden() -> list[str]:
+    with open(GOLDEN, encoding="utf-8") as f:
+        return f.read().splitlines()
+
+
+def diff(want: list[str], got: list[str]) -> list[str]:
+    """``-``/``+`` line pairs where the transcripts differ."""
+    pad = [""] * max(len(want), len(got))
+    return [f"- {w}\n+ {g}" for w, g in zip(want + pad, got + pad) if w != g]
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m kcp_tpu_torch.demo")
+    ap.add_argument("which", nargs="?", default="all", choices=(*SCENARIOS, "all"))
+    ap.add_argument("--check", action="store_true",
+                    help="compare the transcript with contrib/demo/demo.result")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default="", help='shard the core, e.g. "4" or "4x2"')
+    args = ap.parse_args(argv)
+    if args.check and args.which != "all":
+        print("--check requires running all scenarios", file=sys.stderr)
+        return 2
+    if args.device == "cpu":
+        torch.set_num_threads(1)  # these tiny ops only lose to the thread pool
+    mesh = demo_mesh(args.mesh, args.device)
+    got = asyncio.run(run(args.which, args.device, mesh, echo=True))
+    if args.check:
+        bad = diff(golden(), got)
+        if bad:
+            print("GOLDEN MISMATCH", file=sys.stderr)
+            print("\n".join(bad), file=sys.stderr)
+            return 1
+        print("golden check: OK")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

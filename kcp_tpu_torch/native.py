@@ -7,9 +7,12 @@ the symbols the port calls: the work queue (``wq_*``,
 :class:`kcp_tpu_torch.reconciler.fairqueue.FairWorkQueue`), the durable
 WAL engine (``ws_*``, :class:`WalEngine`, the store's native backend) and
 the slot-vocabulary encoder (``enc_*``, :class:`NativeBucket`, the fast
-path of :class:`kcp_tpu_torch.ops.encode.BucketEncoder`). If the build or
-the load fails, :func:`load` returns ``None`` and every caller falls back
-to its pure-Python path. ``KCP_TPU_NO_NATIVE=1`` forces that fallback.
+path of :class:`kcp_tpu_torch.ops.encode.BucketEncoder`) and the schema
+tokenizer (``enc_tokenize_schemas`` and the ``kcptok`` extension, the two
+native tiers of :func:`kcp_tpu_torch.ops.schemahash.tokenize_schemas`).
+If the build or the load fails, :func:`load` returns ``None`` and every
+caller falls back to its pure-Python path. ``KCP_TPU_NO_NATIVE=1`` forces
+that fallback.
 """
 
 from __future__ import annotations
@@ -108,6 +111,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.enc_hash_pair.restype = ctypes.c_uint32
     lib.enc_hash_pair.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
                                   ctypes.c_size_t]
+    lib.enc_tokenize_schemas.restype = ctypes.c_int
+    lib.enc_tokenize_schemas.argtypes = [
+        ctypes.c_char_p, u64p, ctypes.c_uint32, ctypes.c_uint32, u32p]
     lib.wq_new.restype = ctypes.c_void_p
     lib.wq_new.argtypes = []
     lib.wq_free.restype = None
@@ -349,3 +355,77 @@ class NativeBucket:
                 self._lib.enc_bucket_free(self._h)
         except Exception:
             pass
+
+
+_tok_mod = None
+_tok_tried = False
+
+
+def load_tokenizer():
+    """Load (building if needed) the ``kcptok`` CPython extension, or None.
+
+    Separate from :func:`load` because the extension needs Python's
+    headers at build time; its absence must not disable the main library.
+    None means callers use the next tier down (the JSON-blob native path,
+    then the Python walk).
+    """
+    global _tok_mod, _tok_tried
+    if os.environ.get("KCP_TPU_NO_NATIVE"):
+        return None
+    with _lock:
+        if _tok_tried:
+            return _tok_mod
+        _tok_tried = True
+        path = os.path.join(_NATIVE_DIR, "kcptok.so")
+        try:
+            if not os.path.exists(path) or _sources_newer_than_lib(path):
+                import sysconfig
+
+                # compile against THIS interpreter's headers: the
+                # Makefile's PATH python3 could have another ABI
+                subprocess.run(
+                    ["make", "-s", "-C", _NATIVE_DIR, "kcptok.so",
+                     f"PYINC={sysconfig.get_paths()['include']}"],
+                    check=True, capture_output=True, timeout=120,
+                )
+            import importlib.machinery
+            import importlib.util
+
+            loader = importlib.machinery.ExtensionFileLoader("kcptok", path)
+            spec = importlib.util.spec_from_loader("kcptok", loader)
+            mod = importlib.util.module_from_spec(spec)
+            loader.exec_module(mod)
+            _tok_mod = mod
+        except Exception:  # noqa: BLE001 — any failure means the next tier
+            _tok_mod = None
+        return _tok_mod
+
+
+def tokenize_schemas_native(blobs: list[bytes], max_tokens: int):
+    """Tokenize a batch of canonical-JSON schemas in one native call.
+
+    Returns a ``[len(blobs), max_tokens]`` uint32 numpy array, or None
+    when the library is unavailable or any blob fails to parse (callers
+    fall back to the Python walk).
+    """
+    lib = load()
+    if lib is None:
+        return None
+    import numpy as np
+
+    n = len(blobs)
+    if n == 0:
+        return np.zeros((0, max_tokens), dtype=np.uint32)
+    offsets = np.zeros(n + 1, dtype=np.uint64)
+    lengths = np.fromiter((len(b) for b in blobs), dtype=np.uint64, count=n)
+    np.cumsum(lengths, out=offsets[1:])
+    data = b"".join(blobs)
+    out = np.empty((n, max_tokens), dtype=np.uint32)
+    rc = lib.enc_tokenize_schemas(
+        data,
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        n,
+        max_tokens,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    )
+    return out if rc == 0 else None

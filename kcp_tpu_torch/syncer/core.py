@@ -127,6 +127,13 @@ def _mesh_devices(mesh) -> tuple:
     return () if mesh is None else tuple(dict.fromkeys(mesh.devices.flat))
 
 
+def _device_key(dev: torch.device) -> tuple[str, int]:
+    """``cuda`` and ``cuda:0`` name one card (the current one)."""
+    if dev.type == "cuda" and dev.index is None:
+        return dev.type, torch.cuda.current_device()
+    return dev.type, dev.index or 0
+
+
 def _clone_state(state: ReconcileState) -> ReconcileState:
     """A copy the in-place step may scribble on (the probe's input)."""
     return ReconcileState(*(t.clone() for t in state))
@@ -1379,10 +1386,14 @@ class FusedCore:
         many loops sequentially; each gets a fresh core).
 
         ``pipeline=None`` falls back to ``KCP_PIPELINE`` (default
-        "double"); ``device=None`` is the CUDA card. ``mesh=None`` falls
-        back to the process serving mesh (``parallel.mesh.set_serving_mesh``),
-        so a configured process serves sharded without every engine
-        re-plumbing the mesh."""
+        "double"); ``device=None`` is the CUDA card, or the mesh's lead
+        device on a mesh. ``mesh=None`` falls back to the process serving
+        mesh (``parallel.mesh.set_serving_mesh``), so a configured process
+        serves sharded without every engine re-plumbing the mesh.
+
+        Every caller in one loop (the push syncers' engines, the
+        deployment splitter) shares the one core: a caller asking for
+        another device or mesh than the live core's is an error."""
         if mesh is None:
             mesh = get_serving_mesh()
         try:
@@ -1396,13 +1407,15 @@ class FusedCore:
             core = cls(mesh=mesh, pipeline=pipeline, device=device)
             core._loop = loop
             cls._instances[id(loop)] = core
-        else:
-            if mesh is not None and core.mesh != mesh:
-                log.warning("FusedCore for this loop already exists with a "
-                            "different mesh; keeping the existing core's mesh")
-            if pipeline is not None and core.pipeline != pipeline:
-                log.warning("FusedCore for this loop already exists with "
-                            "pipeline=%s; keeping it", core.pipeline)
+            return core
+        want = resolve_device(device, mesh)
+        if core.mesh != mesh or _device_key(core.device) != _device_key(want):
+            raise ValueError(
+                f"the FusedCore of this loop runs on {core.device} with mesh "
+                f"{core.mesh}; a caller asked for {want} with mesh {mesh}")
+        if pipeline is not None and core.pipeline != pipeline:
+            log.warning("FusedCore for this loop already exists with "
+                        "pipeline=%s; keeping it", core.pipeline)
         return core
 
     @classmethod

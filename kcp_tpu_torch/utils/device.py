@@ -9,7 +9,12 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
+def resolve_device(device: "str | torch.device | None" = None,
+                   mesh=None) -> torch.device:
+    """The device a caller asked for; ``None`` is the card, or the lead
+    device of ``mesh`` when one is given."""
+    if device is None and mesh is not None:
+        return mesh.lead
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

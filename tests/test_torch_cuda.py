@@ -1,6 +1,8 @@
 """The port on the card: the CUDA kernel against its plain version (both
 forms, every path of its tile plan), the step on the card against the
-step on the CPU, and a short FusedCore loop.
+step on the CPU, a short FusedCore loop, the schema hash on the card
+against the CPU, and the controller plane on the card (the kubecon demo
+scenario and a small fleet).
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports neither JAX nor the JAX package, so on a machine
@@ -244,3 +246,39 @@ def test_sharded_fleet_step_on_card_equals_unsharded(cuda_device):
             wires.append(tm.wire_to_numpy(wire))
         assert wires[0].tobytes() == wires[1].tobytes(), tick
         assert bool(wires[0][1]) == (cap == 64)
+
+
+@pytest.mark.parametrize("t", [1, 7, 256])
+def test_schema_hashes_on_card_equal_cpu(cuda_device, t):
+    from kcp_tpu_torch.ops.schemahash import schema_hashes
+
+    rng = np.random.default_rng(t)
+    toks = rng.integers(0, 2**32, (513, t), dtype=np.uint64).astype(np.uint32)
+    toks[:, 0] = 2**32 - 1
+    want = schema_hashes(torch.from_numpy(toks))
+    got = schema_hashes(torch.from_numpy(toks).to(cuda_device))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mesh", [None, "4"])
+def test_kubecon_demo_on_card(cuda_device, mesh):
+    from kcp_tpu_torch import demo
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded
+
+    counter = decide_and_match if mesh is None else decide_and_match_sharded
+    counter.launches = 0
+    m = demo.demo_mesh(mesh or "", None)
+    got = asyncio.run(demo.run("kubecon", None, m))
+    assert got == demo.golden()[-len(got):] and got[0] == "=== demo: kubecon ==="
+    assert counter.launches > 0
+
+
+def test_controller_plane_on_card(cuda_device):
+    from kcp_tpu_torch import demo
+
+    decide_and_match.launches = 0
+    out = asyncio.run(demo.controller_plane_load(None, None, n_logical=2,
+                                                 n_physical=3, roots=32, seed=3))
+    assert out["leaves"] == 2 * 3 * 32 and out["fused_placements"] == 64
+    assert decide_and_match.launches > 0

@@ -46,6 +46,12 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 # ------------------------------------------------------------ mirroring
 
 
+# entry points that default to the card: a mirrored file gets them bound
+# to the CPU
+ON_THE_CPU = ("start_syncer", "NegotiationController", "ClusterController",
+              "DeploymentSplitter")
+
+
 @functools.lru_cache(maxsize=None)
 def port_module(ref_file: str) -> types.ModuleType:
     """A reference test file's source, executed against the port."""
@@ -54,11 +60,19 @@ def port_module(ref_file: str) -> types.ModuleType:
     src = re.sub(r"\bkcp_tpu\b", "kcp_tpu_torch", src)
     src = src.replace('backend="tpu"', 'backend="fused", device="cpu"')
     src = src.replace('"tpu"', '"fused"')
+    # the port has no jit wrapper: the mirrored file calls the function
+    src = src.replace("schema_hashes_jit", "schema_hashes")
+    src = src.replace("FusedCore.for_current_loop()",
+                      'FusedCore.for_current_loop(device="cpu")')
     mod = types.ModuleType(f"port_{ref_file[:-3]}")
     mod.__file__ = path
     exec(compile(src, f"{path} (against kcp_tpu_torch)", "exec"), mod.__dict__)
-    if "start_syncer" in mod.__dict__:
-        mod.start_syncer = functools.partial(mod.start_syncer, device="cpu")
+    for name in ON_THE_CPU:
+        if name in mod.__dict__:
+            setattr(mod, name, functools.partial(getattr(mod, name), device="cpu"))
+    if "schema_hashes" in mod.__dict__:
+        hashes = mod.schema_hashes
+        mod.schema_hashes = lambda toks: hashes(torch.from_numpy(np.asarray(toks)))
     return mod
 
 
@@ -354,6 +368,13 @@ def test_engine_backend_names():
 
 
 def test_openapi_from_crds_waits_for_the_schema_lane():
+    """Without an attached document, ``openapi_v2`` synthesizes one from
+    the cluster's CRDs, equal to the reference's for the same CRDs (and
+    None for a cluster without any)."""
+    from kcp_tpu.apis import crd as ref_crd
+    from kcp_tpu.client import Client as RefClient
+    from kcp_tpu.store import LogicalStore as RefStore
+    from kcp_tpu_torch.apis import crd as port_crd
     from kcp_tpu_torch.client import Client
     from kcp_tpu_torch.store import LogicalStore
 
@@ -361,5 +382,18 @@ def test_openapi_from_crds_waits_for_the_schema_lane():
     store.openapi_doc = {"swagger": "2.0"}
     assert Client(store, "t").openapi_v2() == {"swagger": "2.0"}
     store.openapi_doc = None
-    with pytest.raises(NotImplementedError, match="A5"):
-        Client(store, "t").openapi_v2()
+    assert Client(store, "t").openapi_v2() is None
+
+    schema = {"type": "object", "properties": {"spec": {
+        "type": "object", "properties": {"replicas": {"type": "integer"},
+                                         "image": {"type": "string"}}}}}
+    docs = []
+    for crdapi, client in ((ref_crd, RefClient(RefStore(), "t")),
+                           (port_crd, Client(LogicalStore(), "t"))):
+        for group, plural, kind in (("apps", "deployments", "Deployment"),
+                                    ("example.dev", "widgets", "Widget")):
+            client.create(crdapi.CRDS, crdapi.new_crd(group, "v1", plural, kind,
+                                                      schema=schema))
+        docs.append(client.openapi_v2())
+    assert docs[1] is not None and docs[1]["definitions"]
+    assert docs[1] == docs[0]

@@ -3,9 +3,10 @@ package.
 
 ``tests/conftest.py`` imports JAX into every test process, so the
 runtime check imports every module of the port, drives a tiny CPU closed
-loop through its FusedCore and serves a few objects through
-``start_syncer`` on a 2 x ``cpu`` mesh, all in a fresh interpreter (``-I``: no user site, no PYTHONPATH hooks) and
-inspects its ``sys.modules``. A static scan of the port's sources and of
+loop through its FusedCore, serves a few objects through
+``start_syncer`` on a 2 x ``cpu`` mesh and runs the kubecon demo scenario
+through the controller plane, all in a fresh interpreter (``-I``: no user
+site, no PYTHONPATH hooks) and inspects its ``sys.modules``. A static scan of the port's sources and of
 ``chip_smoke.py`` backs it up for code the loop does not reach.
 """
 
@@ -63,12 +64,20 @@ async def serve():
 
 
 synced, sharded = asyncio.run(serve())
+
+# the controller plane: the kubecon scenario (clusters registered,
+# schemas imported and negotiated, a Deployment split, synced down and
+# its status summed back)
+from kcp_tpu_torch import demo
+
+kubecon = asyncio.run(demo.run("kubecon", device="cpu"))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "kcp_tpu"))
 print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
                   "queue": type(core.controller.queue).__name__,
                   "fair": type(make_queue("probe")).__name__,
                   "synced": synced, "sharded": sharded,
+                  "kubecon": kubecon, "golden": demo.golden(),
                   "loaded": loaded}))
 """
 
@@ -83,6 +92,8 @@ def test_port_closed_loop_loads_no_jax_and_no_reference_module():
     assert res["loaded"] == [], f"port loaded {res['loaded']}"
     assert res["converged"] and res["ticks"] > 0
     assert res["synced"] == 8 and res["sharded"] == "ShardedTensor"
+    assert res["kubecon"][0] == "=== demo: kubecon ==="
+    assert res["kubecon"] == res["golden"][-len(res["kubecon"]):]
     # the controller's queue is the native fair queue when the repo's
     # library builds, else the plain one: either is the port's own class
     assert res["queue"] in ("FairWorkQueue", "WorkQueue")
