@@ -63,11 +63,30 @@ Phases, each fatal on failure:
 7b. the two demo scenarios through the port on the card, unsharded and
    with the controllers on mesh ``"4"`` over ``cuda:0``: both
    transcripts equal ``contrib/demo/demo.result`` line for line, and each
-   run launched its kernel (``decide_and_match_sharded`` on the mesh).
+   run launched its kernel (``decide_and_match_sharded`` on the mesh);
+8. the front door — phase 7's layout reached through ``kcp start``'s
+   ``Server`` in a ``ServerThread`` (in memory, TLS off, controllers on
+   the card, 0.2 s polls), driven over HTTP by a
+   ``MultiClusterRestClient`` (``kcp_tpu_torch.demo.front_door_load``):
+   the 64 registrations, 64 root Deployments per logical cluster (cut
+   from phase 7's 256 for the time limit), every leaf equal to the CPU
+   split, every root's readyReplicas read back over REST,
+   ``decide_and_match`` launched once per fleet tick with synced rows,
+   the quota ledger's device lane equal to each logical cluster's
+   leaves and ``quota_usage_device`` on ``/metrics`` to all of them,
+   ``/debug/trace`` written, nothing quarantined; then the window's
+   readings (creates' latency on the client, ``admission_seconds``, tick
+   phases, process CPU, ticks and launches);
+8b. the binaries as child processes without ``--device``: ``kcp start``
+   with its controllers serves a create, a get, a wildcard list and
+   ``/readyz``; kcp + physical kcp + a ``--backend fused`` syncer
+   downsync a labelled ConfigMap; each child exits 0 on SIGTERM and,
+   through a wrapper that adds nothing to the binary, reports that it
+   loaded no ``jax``/``jaxlib``/``kcp_tpu`` module.
 
-Phases 7 and 7b run right after 5b, before the profiler of 5c, so that
+Phases 7 to 8b run right after 5b, before the profiler of 5c, so that
 their host-clock readings, like those of 5 and 5b, follow no profiler
-session.
+session (phase 8's own ``/debug/trace`` comes after its readings).
 
 The line before the last is the kernels' JSON record, every number in
 it measured in this run (``bound_ms`` computed from this run's inputs);
@@ -79,6 +98,8 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -99,6 +120,24 @@ ENGINE_NAMESPACES = 64
 # phase 7: logical clusters (cut from 10,000 for the time limit), fake
 # physical clusters per logical cluster, root Deployments per logical cluster
 PLANE_LOGICAL, PLANE_PHYSICAL, PLANE_ROOTS = 16, 4, 256
+# phase 8: phase 7's layout, reached through kcp start's server over REST;
+# root Deployments per logical cluster cut from 256 to 64 for the run's
+# time limit (at 256 the POSTs alone took 103 s on the H100)
+FRONT_ROOTS = 64
+# phase 8b: the modules a child binary must not have loaded as it exits
+FORBIDDEN = ("jax", "jaxlib", "kcp_tpu")
+# phase 8b: runs a binary unchanged and, as it exits, prints the JAX and
+# JAX-package modules it loaded and the kernel's launch count
+WRAPPER = (
+    "import atexit, json, runpy, sys\n"
+    "def report():\n"
+    "    ck = sys.modules.get('kcp_tpu_torch.ops.cuda_kernels')\n"
+    "    print('EXIT ' + json.dumps({'loaded': sorted(m for m in sys.modules\n"
+    "          if m.split('.')[0] in %r), 'launches': ck.decide_and_match.launches\n"
+    "          if ck else 0}), flush=True)\n"
+    "atexit.register(report)\n"
+    "sys.argv[0] = %r\n"
+    "runpy.run_module(%r, run_name='__main__')\n")
 
 
 def fail(msg: str) -> None:
@@ -664,6 +703,160 @@ def demo_phase(torch, dev, card: str) -> None:
               f"{counter.__name__} launches {launches} [{card}]")
 
 
+def front_door_phase(torch, card: str) -> int:
+    """8. Phase 7's controller plane reached through kcp start's server:
+    ``kcp_tpu_torch.demo.front_door_load`` on the card checks every leaf,
+    every aggregated root (over REST), one launch per fleet tick, the
+    ledger's device lane, /debug/trace and quarantine, and raises on the
+    first check that fails. Returns the phase's kernel launches."""
+    import tempfile
+
+    from kcp_tpu_torch import demo
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match
+
+    trace_dir = tempfile.mkdtemp(prefix="kcp-chip-smoke-trace-")
+    decide_and_match.launches = 0
+    try:
+        out = demo.front_door_load(None, PLANE_LOGICAL, PLANE_PHYSICAL, FRONT_ROOTS,
+                                   seed=8, trace_dir=trace_dir)
+    except RuntimeError as err:
+        fail(f"front door: {err}")
+    torch.cuda.synchronize()
+    launches = decide_and_match.launches
+    window = out["aggregated_s"]
+    in_ticks = sum(out["tick_phases_s"].values())
+    lane = sorted(set(out["device_lane"].values()))
+    print(f"front door: kcp start's Server (in memory, TLS off, 0.2 s polls, controllers "
+          f"on the card) over {out['physical']} fake physical clusters, each registered over "
+          f"REST by all {out['logical']} logical clusters ({out['syncers']} push syncers); "
+          f"every import Compatible+Available, every cluster Ready {out['ready_s']:.2f} s "
+          f"after the first registration; {out['roots']} roots POSTed in "
+          f"{out['posted_s']:.2f} s -> {out['leaves']} leaves; first root POST -> last leaf "
+          f"downstream {out['leaves_s']:.2f} s, -> last root aggregated (read over REST) "
+          f"{window:.2f} s; leaves equal the CPU split; nothing quarantined [{card}]")
+    print(f"front door: creates p50 {out['create_p50_ms']:.3f} ms p99 "
+          f"{out['create_p99_ms']:.3f} ms (client side); admission_seconds "
+          f"{out['admission_s']:.4f} s over {out['admissions']} admissions; "
+          f"{out['ticks']} fleet ticks ({out['empty_ticks']} of them without synced rows), "
+          f"decide_and_match launches {out['launches']} in the window ({launches} in the "
+          f"phase); tick phases {in_ticks:.3f} s in all ("
+          + " ".join(f"{k}={v:.3f}s" for k, v in sorted(out["tick_phases_s"].items()))
+          + f"), outside the ticks {window - in_ticks:.3f} s; process CPU "
+          f"{out['cpu_s']:.3f} s = {out['cpu_s'] / window * 100:.1f}% of the window [{card}]")
+    print(f"front door: quota ledger device lane {lane} Deployments per logical cluster "
+          f"(the leaves of its {out['physical']} push syncers), quota_usage_device "
+          f"{out['usage_device']:.0f} on /metrics, {out['ledger_updates']:.0f} count batches "
+          f"forwarded; /debug/trace started, wrote {out['trace']['trace']} "
+          f"({os.path.getsize(out['trace']['trace'])} bytes) [{card}]")
+    return launches
+
+
+def _child(module: str, *args: str):
+    """A binary of the port as a child process, through ``WRAPPER``."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.getcwd(), os.environ.get("PYTHONPATH", "")) if p))
+    env.pop("KCP_DEVICE", None)  # no --device: each uses the card
+    code = WRAPPER % (FORBIDDEN, module.rsplit(".", 1)[-1], module)
+    return subprocess.Popen([sys.executable, "-c", code, *args], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _first_line(proc, what: str, timeout: float = 120.0) -> str:
+    """The URL of a child's 'serving at' line."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    line = proc.stdout.readline() if ready else ""
+    if "serving at" not in line:
+        fail(f"{what}: no 'serving at' line (got {line!r}); stderr: "
+             f"{proc.stderr.read()[-2000:] if proc.poll() is not None else '(running)'}")
+    return line.strip().rsplit(" ", 1)[-1]
+
+
+def _http(method: str, url: str, body: dict | None = None):
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method,
+                                 data=json.dumps(body).encode() if body else None)
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        raw = resp.read()
+        return resp.status, (json.loads(raw) if raw[:1] == b"{" else raw.decode())
+
+
+def binaries_phase(card: str) -> None:
+    """8b. The binaries in child processes on the card, without --device:
+    ``kcp start`` with its controllers serves a create, a get, a wildcard
+    list and /readyz and exits 0 on SIGTERM; kcp + physical kcp + a
+    ``--backend fused`` syncer downsync a labelled object. No child loads
+    JAX or the JAX package (each reports its modules as it exits)."""
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        procs["kcp start"] = _child(
+            "kcp_tpu_torch.cli.kcp", "start", "--in-memory", "--no-tls", "--listen-port",
+            "0", "--poll-interval", "0.2")
+        for name in ("kcp", "physical kcp"):
+            procs[name] = _child("kcp_tpu_torch.cli.kcp", "start", "--in-memory", "--no-tls",
+                                 "--no-install-controllers", "--listen-port", "0")
+        kcp_url = _first_line(procs["kcp"], "kcp")
+        phys_url = _first_line(procs["physical kcp"], "physical kcp")
+        procs["syncer"] = _child(
+            "kcp_tpu_torch.cli.syncer", "--from-server", kcp_url, "--from-cluster", "tenant",
+            "--to-server", phys_url, "--to-cluster", "default", "--cluster", "east",
+            "--backend", "fused", "configmaps")
+        base = _first_line(procs["kcp start"], "kcp start")
+        served_s = time.perf_counter() - t0
+        path = "/api/v1/namespaces/default/configmaps"
+        status, _ = _http("POST", f"{base}/clusters/t{path}",
+                          {"metadata": {"name": "front"}, "data": {"a": "1"}})
+        got = _http("GET", f"{base}/clusters/t{path}/front")[1]
+        items = _http("GET", f"{base}/clusters/*{path}")[1]["items"]
+        ready = _http("GET", f"{base}/readyz")[1]
+        if status != 201 or got["data"] != {"a": "1"} or [
+                o["metadata"]["name"] for o in items] != ["front"] or ready != "ok":
+            fail(f"kcp start: create {status}, get {got}, list {items}, readyz {ready}")
+        _http("POST", f"{kcp_url}/clusters/tenant{path}",
+              {"metadata": {"name": "synced-cm", "labels": {"kcp.dev/cluster": "east"}},
+               "data": {"from": "kcp"}})
+        deadline, down = time.monotonic() + 120, None
+        while time.monotonic() < deadline and down is None:
+            if procs["syncer"].poll() is not None:
+                fail(f"syncer died: {procs['syncer'].stderr.read()[-2000:]}")
+            try:
+                down = _http("GET", f"{phys_url}/clusters/default{path}/synced-cm")[1]
+            except OSError:
+                time.sleep(0.2)
+        if down is None or down["data"] != {"from": "kcp"}:
+            fail(f"three-process pipeline: the object never downsynced ({down})")
+        synced_s = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        exits = {}
+        for name, p in procs.items():
+            try:
+                out, err = p.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            line = [x for x in out.splitlines() if x.startswith("EXIT ")]
+            exits[name] = (p.returncode, json.loads(line[-1][5:]) if line else None, err)
+    for name, (rc, report, err) in exits.items():
+        if rc != 0 or report is None:
+            fail(f"{name}: exit {rc}, report {report}; stderr: {err[-2000:]}")
+        if report["loaded"]:
+            fail(f"{name} loaded {report['loaded']}")
+    if exits["syncer"][1]["launches"] == 0:
+        fail("syncer --backend fused: decide_and_match never launched in the child")
+    print(f"binaries: kcp start with controllers served create/get/wildcard list/readyz "
+          f"{served_s:.2f} s after launch; kcp + physical kcp + syncer --backend fused "
+          f"downsynced the object {synced_s:.2f} s after launch (the syncer's child "
+          f"launched decide_and_match {exits['syncer'][1]['launches']} times); all "
+          f"{len(exits)} children exited 0 on SIGTERM with no jax/jaxlib/kcp_tpu module "
+          f"loaded [{card}]")
+
+
 def main() -> None:
     import torch
 
@@ -760,6 +953,11 @@ def main() -> None:
     controller_plane_phase(torch, dev, card)
     demo_phase(torch, dev, card)
 
+    # ---- 8. kcp start's server on the card, driven over REST; 8b. the
+    #          binaries in child processes (before the profiler, too)
+    front_launches = front_door_phase(torch, card)
+    binaries_phase(card)
+
     # ---- 3, 3b: the kernels' device times; 4, 4b: no index_add_ in either
     #          step (profiled, so after the main path's readings)
     device_times(timed, card)
@@ -793,7 +991,8 @@ def main() -> None:
 
     record.update(name="decide_and_match", route="cuda",
                   source="kcp_tpu_torch/csrc/decide_match.cu",
-                  replaces="kcp_tpu/ops/pallas_kernels.py:129", launches=launches,
+                  replaces="kcp_tpu/ops/pallas_kernels.py:129",
+                  launches=launches + front_launches,
                   library_ms=None)
     record_sharded.update(name="decide_and_match_sharded", route="cuda",
                           source="kcp_tpu_torch/csrc/decide_match.cu",

@@ -15,6 +15,10 @@ The push syncers and the splitter share the loop's ``FusedCore`` on
 ``--device`` (the CUDA card by default); ``--mesh SPEC`` shards it over
 that many copies of the device (``"4"``, ``"4x2"``).
 
+``controller_plane_load`` runs the same controllers at a fleet's size in
+one loop; ``front_door_load`` runs that fleet through ``kcp start``'s
+``Server``, driven over REST from another thread.
+
 Usage:
     python -m kcp_tpu_torch.demo [apiNegotiation|kubecon|all] [--check]
                                  [--device cpu] [--mesh 4x2]
@@ -205,6 +209,45 @@ def _tick_phase_totals() -> dict[str, float]:
             if k.startswith("fused_") and k.endswith("_seconds") and isinstance(v, dict)}
 
 
+def _seeded_roots(seed: int, n_logical: int, n_physical: int, roots: int):
+    """Seeded replicas in 1..100, [n_logical, roots], and the CPU split
+    every leaf must carry when every logical cluster registers all
+    ``n_physical`` clusters, [n_logical, roots, n_physical]."""
+    import numpy as np
+
+    from .ops.placement import split_replicas
+
+    rng = np.random.default_rng(seed)
+    replicas = rng.integers(1, 101, (n_logical, roots)).astype(np.int32)
+    want = split_replicas(torch.from_numpy(replicas.reshape(-1)),
+                          torch.ones(n_logical * roots, n_physical, dtype=torch.bool)
+                          ).numpy().reshape(n_logical, roots, n_physical)
+    return replicas, want
+
+
+def _root(k: int, replicas: int) -> dict:
+    return {"apiVersion": "apps/v1", "kind": "Deployment",
+            "metadata": {"name": f"app-{k}", "namespace": "default"},
+            "spec": {"replicas": replicas,
+                     "selector": {"matchLabels": {"app": f"app-{k}"}},
+                     "template": {"metadata": {"labels": {"app": f"app-{k}"}},
+                                  "spec": {"containers": [{"name": "app", "image": "x"}]}}}}
+
+
+def _check_leaves(leaves: dict, lcs: list, pcs: list, want, roots: int) -> None:
+    """``leaves[pc]``: {name: replicas} read from physical cluster ``pc``;
+    each must equal the CPU split."""
+    for j, pc in enumerate(pcs):
+        got = leaves[pc]
+        for i, lc in enumerate(lcs):
+            for k in range(roots):
+                name = f"app-{k}--{lc}-{pc}"
+                if got.get(name) != int(want[i, k, j]):
+                    raise RuntimeError(
+                        f"leaf {name} on {pc}: replicas {got.get(name)}, "
+                        f"the split says {int(want[i, k, j])}")
+
+
 async def controller_plane_load(device=None, mesh=None, n_logical: int = 16,
                                 n_physical: int = 4, roots: int = 256, seed: int = 0,
                                 timeout: float = 300.0) -> dict:
@@ -230,19 +273,11 @@ async def controller_plane_load(device=None, mesh=None, n_logical: int = 16,
     core spent in each tick phase, and the process's CPU seconds."""
     import time
 
-    import numpy as np
-
-    from .ops.placement import split_replicas
     from .utils.trace import REGISTRY
 
-    rng = np.random.default_rng(seed)
     lcs = [f"lc-{i:02d}" for i in range(n_logical)]
     pcs = [f"pc-{j}" for j in range(n_physical)]  # fake://pc-j, shared by every lc
-    replicas = rng.integers(1, 101, (n_logical, roots)).astype(np.int32)
-    # the CPU split every leaf must carry: all pcs registered everywhere
-    want = split_replicas(torch.from_numpy(replicas.reshape(-1)),
-                          torch.ones(n_logical * roots, n_physical, dtype=torch.bool)
-                          ).numpy().reshape(n_logical, roots, n_physical)
+    replicas, want = _seeded_roots(seed, n_logical, n_physical, roots)
     quarantined0 = REGISTRY.counter("quarantined_rows").value
     cp = ControlPlane(device, mesh)
     await cp.start()
@@ -278,14 +313,7 @@ async def controller_plane_load(device=None, mesh=None, n_logical: int = 16,
         ticks0 = core._fleet.stats["ticks"] if core._fleet is not None else 0
         for i, lc in enumerate(lcs):
             for k in range(roots):
-                scoped[lc].create("deployments.apps", {
-                    "apiVersion": "apps/v1", "kind": "Deployment",
-                    "metadata": {"name": f"app-{k}", "namespace": "default"},
-                    "spec": {"replicas": int(replicas[i, k]),
-                             "selector": {"matchLabels": {"app": f"app-{k}"}},
-                             "template": {"metadata": {"labels": {"app": f"app-{k}"}},
-                                          "spec": {"containers": [{"name": "app", "image": "x"}]}}},
-                })
+                scoped[lc].create("deployments.apps", _root(k, int(replicas[i, k])))
         phys = {pc: cp.registry.resolve(f"fake://{pc}") for pc in pcs}
         n_leaves = n_logical * roots * n_physical
 
@@ -310,16 +338,9 @@ async def controller_plane_load(device=None, mesh=None, n_logical: int = 16,
         phases = {k: v - phases1.get(k, 0.0) for k, v in _tick_phase_totals().items()}
         ticks = (core._fleet.stats["ticks"] if core._fleet is not None else 0) - ticks0
 
-        for j, pc in enumerate(pcs):
-            got = {o["metadata"]["name"]: o["spec"]["replicas"]
-                   for o in phys[pc].list("deployments.apps")[0]}
-            for i, lc in enumerate(lcs):
-                for k in range(roots):
-                    name = f"app-{k}--{lc}-{pc}"
-                    if got.get(name) != int(want[i, k, j]):
-                        raise RuntimeError(
-                            f"leaf {name} on {pc}: replicas {got.get(name)}, "
-                            f"the split says {int(want[i, k, j])}")
+        _check_leaves({pc: {o["metadata"]["name"]: o["spec"]["replicas"]
+                            for o in phys[pc].list("deployments.apps")[0]} for pc in pcs},
+                      lcs, pcs, want, roots)
         stats = dict(cp.splitter.stats)
         if stats["fused_placements"] < n_logical * roots or stats["host_placements"]:
             raise RuntimeError(f"placements: {stats}")
@@ -335,6 +356,215 @@ async def controller_plane_load(device=None, mesh=None, n_logical: int = 16,
                     aggregations=stats["aggregations"])
     finally:
         await cp.stop()
+
+
+def _until(pred, timeout: float, what: str, interval: float = 0.2):
+    """Poll ``pred`` from a plain thread until it holds; its last value."""
+    import time
+
+    end = time.monotonic() + timeout
+    last = None
+    while time.monotonic() < end:
+        try:
+            last = pred()
+            if last:
+                return last
+        except Exception as e:  # noqa: BLE001 — a read racing the server
+            last = repr(e)
+        time.sleep(interval)
+    raise RuntimeError(f"timed out waiting for {what} (last={last!r})")
+
+
+def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
+                    roots: int = 256, seed: int = 0, timeout: float = 300.0,
+                    trace_dir: str | None = None) -> dict:
+    """``controller_plane_load`` through ``kcp start``'s server: a
+    ``Server`` in a ``ServerThread`` (in memory, TLS off, controllers on
+    ``device``, clusters and imports polled every 0.2 s, APIs published
+    automatically) over ``n_physical`` fake physical clusters with a
+    ``FakeClusterAgent`` each, driven from this thread over HTTP by a
+    ``MultiClusterRestClient``: every logical cluster registers every
+    physical cluster as ``<lc>-pc-<j>`` and creates ``roots`` root
+    Deployments with seeded replicas in 1..100.
+
+    Checks, raising RuntimeError on the first that fails: every import
+    Compatible and Available and every cluster Ready (read over REST);
+    every leaf downstream with the CPU split's replicas; every root's
+    readyReplicas, read over REST, equal to its replicas; on a card,
+    ``decide_and_match`` launched at least once per fleet tick of the
+    window that had synced rows (a tick of the placement lanes alone has
+    nothing to decide); the quota ledger's device lane fed by the fleet batch
+    (``fused_fleet_ledger_updates_total`` rose, each logical cluster's
+    Deployments count equal to the leaves its push syncers hold,
+    ``quota_usage_device`` on ``/metrics`` equal to all leaves); nothing
+    quarantined; and, when ``trace_dir`` is given, ``/debug/trace``
+    started and wrote its trace there. Returns the readings of the window
+    from the first root POST: to the last leaf downstream and to the last
+    root aggregated, the creates' client-side latencies, the server's
+    admission and tick-phase seconds, the process's CPU seconds, fleet
+    ticks and kernel launches."""
+    import json
+    import time
+    import urllib.request
+
+    import numpy as np
+
+    from .apis.cluster import new_cluster
+    from .ops.cuda_kernels import decide_and_match
+    from .server import Config, MultiClusterRestClient
+    from .server.threaded import ServerThread
+    from .utils.trace import REGISTRY
+
+    dev = resolve_device(device)
+    lcs = [f"lc-{i:02d}" for i in range(n_logical)]
+    pcs = [f"pc-{j}" for j in range(n_physical)]
+    replicas, want = _seeded_roots(seed, n_logical, n_physical, roots)
+    n_leaves = n_logical * roots * n_physical
+    registry = PhysicalRegistry()
+    st = ServerThread(Config(durable=False, tls=False, poll_interval=0.2,
+                             import_poll_interval=0.2, auto_publish_apis=True,
+                             device=device), registry=registry).start(timeout)
+    agents: list[FakeClusterAgent] = []
+    phys = {pc: registry.resolve(f"fake://{pc}") for pc in pcs}
+
+    async def start_agents():
+        for pc in pcs:
+            agent = FakeClusterAgent(phys[pc])
+            await agent.start()
+            agents.append(agent)
+
+    def counter(name: str) -> float:
+        return REGISTRY.counter(name).value
+
+    def histogram_s(name: str) -> tuple[int, float]:
+        h = REGISTRY.snapshot().get(name) or {"count": 0, "mean": 0.0}
+        return h["count"], h["count"] * h["mean"]
+
+    try:
+        st.submit(start_agents())
+        mc = MultiClusterRestClient(st.address)
+        scoped = {lc: mc.cluster_client(lc) for lc in lcs}
+        quarantined0 = counter("quarantined_rows")
+        t0 = time.perf_counter()
+        for lc in lcs:
+            for pc in pcs:
+                scoped[lc].create(clusterapi.CLUSTERS, new_cluster(f"{lc}-{pc}", f"fake://{pc}"))
+        controllers = st.server._controllers
+        clusters = next(c for c in controllers if isinstance(c, ClusterController))
+        splitter = next(c for c in controllers if isinstance(c, DeploymentSplitter))
+
+        def ready() -> bool:
+            return (st.call(lambda: len(clusters.syncers)) == n_logical * n_physical
+                    and all(ar.is_compatible_and_available(scoped[lc].get(
+                        ar.APIRESOURCEIMPORTS, f"{lc}-{pc}.deployments.v1.apps"))
+                        for lc in lcs for pc in pcs)
+                    and all("deployments.apps" in clusterapi.synced_resources(c)
+                            and clusterapi.is_ready(c)
+                            for lc in lcs for c in scoped[lc].list(clusterapi.CLUSTERS)[0]))
+
+        _until(ready, timeout, "every import Compatible+Available, every cluster Ready")
+        ready_s = time.perf_counter() - t0
+        core = splitter.core
+        ledger = st.server.handler.admission.ledger
+
+        def ticks_launches() -> tuple[int, int, int]:
+            # read on the server loop, where a tick's launch and its count
+            # happen in one synchronous step
+            stats = core._fleet.stats if core._fleet is not None else {}
+            return (stats.get("ticks", 0), stats.get("empty_ticks", 0),
+                    decide_and_match.launches)
+
+        start = st.call(ticks_launches)
+        updates0 = counter("fused_fleet_ledger_updates_total")
+        adm0, phases0 = histogram_s("admission_seconds"), _tick_phase_totals()
+        cpu0 = time.process_time()
+        t1 = time.perf_counter()
+        latencies = []
+        for i, lc in enumerate(lcs):
+            for k in range(roots):
+                c0 = time.perf_counter()
+                scoped[lc].create("deployments.apps", _root(k, int(replicas[i, k])))
+                latencies.append(time.perf_counter() - c0)
+        posted_s = time.perf_counter() - t1
+
+        def downstream() -> bool:
+            return st.call(lambda: sum(len(c.list("deployments.apps")[0])
+                                       for c in phys.values())) == n_leaves
+
+        _until(downstream, timeout, "every leaf downstream", 0.05)
+        leaves_s = time.perf_counter() - t1
+
+        def aggregated() -> bool:
+            for lc in lcs:
+                items = scoped[lc].list("deployments.apps")[0]
+                if sum(1 for o in items if is_root(o)) != roots:
+                    return False
+                for o in items:
+                    if is_root(o) and (o.get("status") or {}).get(
+                            "readyReplicas") != o["spec"]["replicas"]:
+                        return False
+            return True
+
+        _until(aggregated, timeout, "every root's readyReplicas aggregated over REST", 0.05)
+        aggregated_s = time.perf_counter() - t1
+        cpu_s = time.process_time() - cpu0
+        adm1 = histogram_s("admission_seconds")
+        phases = {k: v - phases0.get(k, 0.0) for k, v in _tick_phase_totals().items()}
+        ticks, empty_ticks, launches = (
+            a - b for a, b in zip(st.call(ticks_launches), start))
+
+        _check_leaves(st.call(lambda: {pc: {o["metadata"]["name"]: o["spec"]["replicas"]
+                                            for o in phys[pc].list("deployments.apps")[0]}
+                                       for pc in pcs}), lcs, pcs, want, roots)
+        if dev.type == "cuda" and launches < ticks - empty_ticks:
+            raise RuntimeError(f"decide_and_match launched {launches} times in "
+                               f"{ticks} fleet ticks, {empty_ticks} of them without rows")
+        per_lc = roots * n_physical
+
+        def lane() -> dict:
+            return {lc: ledger.device_usage_of(lc, "deployments.apps") for lc in lcs}
+
+        _until(lambda: set(lane().values()) == {per_lc}, 30.0,
+               f"the ledger's device lane at {per_lc} Deployments per logical cluster")
+        updates = counter("fused_fleet_ledger_updates_total") - updates0
+        if updates <= 0:
+            raise RuntimeError("the fleet batch forwarded no counts to the ledger")
+        with urllib.request.urlopen(f"{st.address}/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        usage = [float(line.split()[-1]) for line in metrics.splitlines()
+                 if line.startswith("quota_usage_device ")]
+        if usage != [float(n_leaves)]:
+            raise RuntimeError(f"quota_usage_device on /metrics: {usage}, want {n_leaves}")
+        trace = None
+        if trace_dir is not None:
+            url = f"{st.address}/debug/trace?seconds=0.5&dir={trace_dir}"
+            with urllib.request.urlopen(url, timeout=60) as r:
+                trace = json.loads(r.read())
+            if not trace.get("started") or not os.path.exists(trace.get("trace", "")):
+                raise RuntimeError(f"/debug/trace: {trace}")
+        quarantined = counter("quarantined_rows") - quarantined0
+        if quarantined:
+            raise RuntimeError(f"{quarantined} rows quarantined")
+        lat = np.array(latencies)
+        return dict(logical=n_logical, physical=n_physical, roots=n_logical * roots,
+                    leaves=n_leaves, syncers=n_logical * n_physical, ready_s=ready_s,
+                    posted_s=posted_s, leaves_s=leaves_s, aggregated_s=aggregated_s,
+                    create_p50_ms=float(np.percentile(lat, 50) * 1e3),
+                    create_p99_ms=float(np.percentile(lat, 99) * 1e3),
+                    admissions=adm1[0] - adm0[0], admission_s=adm1[1] - adm0[1],
+                    tick_phases_s={k: v for k, v in phases.items() if v > 0},
+                    cpu_s=cpu_s, ticks=ticks, empty_ticks=empty_ticks, launches=launches,
+                    ledger_updates=updates, device_lane=lane(), usage_device=usage[0],
+                    trace=trace)
+    finally:
+        if st.server is not None and agents:
+            st.submit(_stop_agents(agents))
+        st.stop()
+
+
+async def _stop_agents(agents) -> None:
+    for agent in agents:
+        await agent.stop()
 
 
 def demo_mesh(spec: str, device) -> "object | None":

@@ -115,12 +115,7 @@ def mesh_from_spec(spec: str, devices: list | None = None) -> Mesh:
         from .distributed import pod_serving_mesh
 
         return pod_serving_mesh()
-    parts = spec.lower().replace("*", "x").split("x")
-    if not parts or any(not p.strip().isdigit() for p in parts):
-        raise ValueError(f"bad mesh spec {spec!r}: want N, NxM or NxMxK")
-    dims = [int(p) for p in parts]
-    if any(d < 1 for d in dims) or len(dims) > 3:
-        raise ValueError(f"bad mesh spec {spec!r}: want N, NxM or NxMxK")
+    dims = _spec_dims(spec)
     devs = _as_devices(devices) if devices is not None else _visible_devices()
     n = int(np.prod(dims))
     if len(devs) < n:
@@ -134,6 +129,26 @@ def mesh_from_spec(spec: str, devices: list | None = None) -> Mesh:
         return make_mesh(n_devices=n, tenants=dims[0], slots=dims[1], devices=devs)
     h, t, s = dims
     return make_multihost_mesh(hosts=h, tenants=t, slots=s, devices=devs[:n])
+
+
+def _spec_dims(spec: str) -> list[int]:
+    parts = spec.lower().replace("*", "x").split("x")
+    if not parts or any(not p.strip().isdigit() for p in parts):
+        raise ValueError(f"bad mesh spec {spec!r}: want N, NxM or NxMxK")
+    dims = [int(p) for p in parts]
+    if any(d < 1 for d in dims) or len(dims) > 3:
+        raise ValueError(f"bad mesh spec {spec!r}: want N, NxM or NxMxK")
+    return dims
+
+
+def mesh_on(spec: str, device: "str | torch.device | None" = None) -> Mesh:
+    """The mesh of ``spec`` for an entry point's ``device`` argument:
+    ``None`` (or a bare ``"cuda"``) spreads it over the visible CUDA
+    devices; a named device (``"cpu"``, ``"cuda:1"``) holds every shard."""
+    if (device is None or torch.device(device) == torch.device("cuda")
+            or spec.strip().lower() == "auto"):
+        return mesh_from_spec(spec)
+    return mesh_from_spec(spec, devices=[device] * int(np.prod(_spec_dims(spec))))
 
 
 def _grid(devs: list[torch.device], shape: tuple[int, ...]) -> np.ndarray:

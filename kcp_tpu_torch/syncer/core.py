@@ -935,7 +935,10 @@ class FleetBatch:
         self._wire_bufs = WireBuffers(PIPELINE_DEPTH, self.device)
         self._last_rows: list[int] = []
         self._step_failures = 0
-        self.stats = {"ticks": 0, "full_uploads": 0, "overflows": 0,
+        # empty_ticks: fleet steps with no synced rows (placement lanes
+        # only), where decide_and_match has nothing to decide and launches
+        # nothing
+        self.stats = {"ticks": 0, "empty_ticks": 0, "full_uploads": 0, "overflows": 0,
                       "acked": 0, "step_failures": 0, "quarantined": 0}
 
     # ----------------------------------------------------------- layout
@@ -1173,6 +1176,7 @@ class FleetBatch:
         _phase("full_upload" if was_stale else "pack", t1 - t0)
         _phase("step_dispatch", t3 - t2)
         self.stats["ticks"] += 1
+        self.stats["empty_ticks"] += self.B == 0
         # member tick counters advance too: the fleet step covers every
         # bucket's rows, and engines/benches read their bucket's counter
         for b in self._members:

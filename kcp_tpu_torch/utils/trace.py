@@ -4,17 +4,17 @@ The reference has no first-party tracing — its forked apiserver serves
 standard ``/metrics`` and ``/debug/pprof`` endpoints that nothing in the
 repo touches (SURVEY.md §5). For a TPU control plane that is not enough:
 the interesting time is split between host orchestration (asyncio
-controllers, encode, apply) and device ticks (jit dispatch, transfer,
-kernel time), so this module provides
+controllers, encode, apply) and device ticks (launch, transfer, kernel
+time), so this module provides
 
 - a process-global :class:`Registry` of counters / gauges / histograms
   with Prometheus-style text exposition (served at ``/metrics`` by the
   API server),
 - :func:`span` — a context manager timing a named section into a
-  histogram (host-side structured timing).
-
-The reference's ``device_trace`` (a ``jax.profiler`` trace) has no
-counterpart here yet; a ``torch.profiler`` version is ROADMAP A3.
+  histogram (host-side structured timing),
+- :func:`device_trace` — a context manager around ``torch.profiler``
+  writing a Chrome trace (``trace.json``) when deeper device attribution
+  is needed.
 
 Everything is dependency-free and safe to call on hot paths: a span is
 two ``perf_counter`` calls and a dict update.
@@ -23,12 +23,16 @@ two ``perf_counter`` calls and a dict update.
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 import threading
 import time
 from bisect import bisect_left
 from dataclasses import dataclass, field
 
 from .locks import make_lock
+
+log = logging.getLogger(__name__)
 
 _DEFAULT_BUCKETS = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
@@ -200,6 +204,49 @@ def span(name: str, registry: Registry = REGISTRY):
         yield
     finally:
         h.observe(time.perf_counter() - t0)
+
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """``torch.profiler`` trace around a block, written as a Chrome trace
+    to ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing).
+
+    Records CUDA activity when a card is present, CPU activity always.
+    Yields whether the profiler started; when it cannot (another
+    profiler session is active in this process, or the profiler is
+    unavailable) the block runs untraced and nothing is written.
+    """
+    import torch
+    from torch.autograd import profiler as autograd_profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = None
+    if autograd_profiler._is_profiler_enabled:
+        # a second session would take over (and end) the running one
+        log.warning("device trace did not start: another profiler session is active")
+    else:
+        try:
+            prof = profile(activities=activities)
+            prof.start()
+        except Exception as e:  # noqa: BLE001 — report, run untraced
+            log.warning("device trace did not start: %s", e)
+            prof = None
+    try:
+        yield prof is not None
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+                os.makedirs(log_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+            except Exception as e:  # noqa: BLE001 — the caller sees no file
+                log.warning("device trace not written: %s", e)
 
 
 # ---------------------------------------------------------------------------

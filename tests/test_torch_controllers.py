@@ -24,7 +24,6 @@ Every comparison is exact equality.
 
 import asyncio
 import importlib
-import inspect
 import os
 import subprocess
 import sys
@@ -33,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_engine import _cases, port_module
+from test_torch_engine import _cases, port_module, run_mirrored
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,12 +49,7 @@ MIRRORED = (
 
 @pytest.mark.parametrize("ref_file,name,kwargs", MIRRORED)
 def test_reference_controller_case_against_the_port(ref_file, name, kwargs, request):
-    fn = getattr(port_module(ref_file), name)
-    args = dict(kwargs)
-    for param in inspect.signature(fn).parameters:
-        if param not in args:
-            args[param] = request.getfixturevalue(param)
-    fn(**args)
+    run_mirrored(ref_file, name, kwargs, request)
 
 
 def test_mirrored_controllers_are_the_ports_on_the_cpu():
@@ -306,12 +300,14 @@ def test_each_cluster_starts_its_push_syncer_once(monkeypatch):
         for j in range(3))
 
 
-def _share_one_physical_cluster(pkg: str, same_name: bool) -> tuple[list, dict]:
+def _share_one_physical_cluster(pkg: str, same_name: bool) -> tuple[set, list, dict, set]:
     """Logical clusters ``a`` and ``b`` both register the fake physical
     cluster ``fake://shared`` (as ``shared`` in both, or as ``a-shared``
     and ``b-shared``), and each creates one root Deployment. Returns the
-    leaf names seen downstream every 10 ms for 3 s after both were first
-    there, and the roots' final readyReplicas."""
+    leaf names placed downstream (each seen at least once: under a shared
+    name the two may never stand there at the same instant), the leaf
+    names seen every 10 ms for 3 s after that, and the roots' final
+    readyReplicas."""
     def mod(name):
         return importlib.import_module(f"{pkg}.{name}")
 
@@ -349,8 +345,10 @@ def _share_one_physical_cluster(pkg: str, same_name: bool) -> tuple[list, dict]:
         def downstream():
             return {o["metadata"]["name"] for o in phys.list("deployments.apps")[0]}
 
+        placed = set()
         for _ in range(3000):
-            if downstream() == leaves:
+            placed |= downstream()
+            if placed == leaves:
                 break
             await asyncio.sleep(0.01)
         seen = []
@@ -362,7 +360,7 @@ def _share_one_physical_cluster(pkg: str, same_name: bool) -> tuple[list, dict]:
         await agent.stop()
         for c in reversed(controllers):
             await c.stop()
-        return seen, ready, leaves
+        return placed, seen, ready, leaves
 
     return asyncio.run(main())
 
@@ -376,8 +374,8 @@ def test_logical_clusters_sharing_a_physical_cluster(pkg, same_name):
     distinct Cluster names both tenants' leaves stay and report ready.
     Under one name each tenant's syncer deletes the other's leaf, again
     and again: a limitation of the reference that the port keeps."""
-    seen, ready, leaves = _share_one_physical_cluster(pkg, same_name)
-    assert seen[0] == leaves  # both leaves were placed
+    placed, seen, ready, leaves = _share_one_physical_cluster(pkg, same_name)
+    assert placed == leaves  # both leaves were placed
     if same_name:
         assert any(s != leaves for s in seen), "no leaf was deleted under a shared name"
     else:

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernel against its plain version (both
 forms, every path of its tile plan), the step on the card against the
 step on the CPU, a short FusedCore loop, the schema hash on the card
-against the CPU, and the controller plane on the card (the kubecon demo
-scenario and a small fleet).
+against the CPU, the controller plane on the card (the kubecon demo
+scenario and a small fleet), and ``kcp start``'s server on the card with
+the quota ledger fed by the kernel's per-segment counts.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports neither JAX nor the JAX package, so on a machine
@@ -282,3 +283,18 @@ def test_controller_plane_on_card(cuda_device):
                                                  n_physical=3, roots=32, seed=3))
     assert out["leaves"] == 2 * 3 * 32 and out["fused_placements"] == 64
     assert decide_and_match.launches > 0
+
+
+def test_front_door_on_card_feeds_the_ledger_as_on_the_cpu(cuda_device, tmp_path):
+    """kcp start's server with its controllers on the card: one fake
+    cluster's Deployments synced over REST, /debug/trace written, and the
+    ledger's device lane equal to the same load's on the CPU."""
+    from kcp_tpu_torch import demo
+
+    card = demo.front_door_load(None, 1, 1, 4, seed=3, timeout=120.0,
+                                trace_dir=str(tmp_path))
+    assert card["launches"] >= card["ticks"] - card["empty_ticks"] > 0
+    host = demo.front_door_load("cpu", 1, 1, 4, seed=3, timeout=120.0)
+    assert card["leaves"] == host["leaves"] == 4
+    assert card["device_lane"] == host["device_lane"] == {"lc-00": 4}
+    assert card["usage_device"] == host["usage_device"] == 4

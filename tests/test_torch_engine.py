@@ -49,7 +49,7 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 # entry points that default to the card: a mirrored file gets them bound
 # to the CPU
 ON_THE_CPU = ("start_syncer", "NegotiationController", "ClusterController",
-              "DeploymentSplitter")
+              "DeploymentSplitter", "Config")
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,6 +64,8 @@ def port_module(ref_file: str) -> types.ModuleType:
     src = src.replace("schema_hashes_jit", "schema_hashes")
     src = src.replace("FusedCore.for_current_loop()",
                       'FusedCore.for_current_loop(device="cpu")')
+    # the port's binaries pick their device from KCP_DEVICE
+    src = src.replace('JAX_PLATFORMS="cpu"', 'KCP_DEVICE="cpu"')
     mod = types.ModuleType(f"port_{ref_file[:-3]}")
     mod.__file__ = path
     exec(compile(src, f"{path} (against kcp_tpu_torch)", "exec"), mod.__dict__)
@@ -107,14 +109,21 @@ MIRRORED = (
 )
 
 
-@pytest.mark.parametrize("ref_file,name,kwargs", MIRRORED)
-def test_reference_case_against_the_port(ref_file, name, kwargs, request):
+def run_mirrored(ref_file: str, name: str, kwargs: dict, request) -> None:
+    """Call a mirrored case, its other arguments taken from pytest's
+    fixtures (a fixture the reference file defines must be importable
+    from the calling test module)."""
     fn = getattr(port_module(ref_file), name)
     args = dict(kwargs)
     for param in inspect.signature(fn).parameters:
         if param not in args:
             args[param] = request.getfixturevalue(param)
     fn(**args)
+
+
+@pytest.mark.parametrize("ref_file,name,kwargs", MIRRORED)
+def test_reference_case_against_the_port(ref_file, name, kwargs, request):
+    run_mirrored(ref_file, name, kwargs, request)
 
 
 def test_mirrored_modules_run_against_the_port():

@@ -4,8 +4,10 @@ package.
 ``tests/conftest.py`` imports JAX into every test process, so the
 runtime check imports every module of the port, drives a tiny CPU closed
 loop through its FusedCore, serves a few objects through
-``start_syncer`` on a 2 x ``cpu`` mesh and runs the kubecon demo scenario
-through the controller plane, all in a fresh interpreter (``-I``: no user
+``start_syncer`` on a 2 x ``cpu`` mesh, runs the kubecon demo scenario
+through the controller plane, and starts ``kcp start``'s ``Server`` with
+its controllers on the CPU, registers one fake cluster and syncs one
+Deployment over REST and takes a ``/debug/trace``, all in a fresh interpreter (``-I``: no user
 site, no PYTHONPATH hooks) and inspects its ``sys.modules``. A static scan of the port's sources and of
 ``chip_smoke.py`` backs it up for code the loop does not reach.
 """
@@ -71,6 +73,11 @@ synced, sharded = asyncio.run(serve())
 from kcp_tpu_torch import demo
 
 kubecon = asyncio.run(demo.run("kubecon", device="cpu"))
+
+# the front door: the server with its controllers, over REST
+import tempfile
+
+front = demo.front_door_load("cpu", 1, 1, 1, timeout=60.0, trace_dir=tempfile.mkdtemp())
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "kcp_tpu"))
 print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
@@ -78,6 +85,7 @@ print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
                   "fair": type(make_queue("probe")).__name__,
                   "synced": synced, "sharded": sharded,
                   "kubecon": kubecon, "golden": demo.golden(),
+                  "front": [front["leaves"], front["device_lane"], front["trace"]["started"]],
                   "loaded": loaded}))
 """
 
@@ -94,6 +102,7 @@ def test_port_closed_loop_loads_no_jax_and_no_reference_module():
     assert res["synced"] == 8 and res["sharded"] == "ShardedTensor"
     assert res["kubecon"][0] == "=== demo: kubecon ==="
     assert res["kubecon"] == res["golden"][-len(res["kubecon"]):]
+    assert res["front"] == [1, {"lc-00": 1}, True]
     # the controller's queue is the native fair queue when the repo's
     # library builds, else the plain one: either is the port's own class
     assert res["queue"] in ("FairWorkQueue", "WorkQueue")
