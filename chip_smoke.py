@@ -82,11 +82,34 @@ Phases, each fatal on failure:
    ``/readyz``; kcp + physical kcp + a ``--backend fused`` syncer
    downsync a labelled ConfigMap; each child exits 0 on SIGTERM and,
    through a wrapper that adds nothing to the binary, reports that it
-   loaded no ``jax``/``jaxlib``/``kcp_tpu`` module.
+   loaded no ``jax``/``jaxlib``/``kcp_tpu`` module; a ``kcp start`` child
+   with ``KCP_FLEET=1`` serves with its fleet scheduler up the same way;
+9a. fleet placement, the solver — ``FleetSolver`` on the card at the
+   placement benchmark's shape (BASELINE configs[2],
+   ``kcp_tpu_torch.bench.placement_bench``: 10,000 workspaces x 8
+   physical clusters, spread 2, padded to 16,384 x 8): the assignment
+   byte-equal to ``solve_host`` on the same inputs, no row over its
+   demand, no replica off a candidate, the 37-row incremental re-solve
+   touching exactly 37 rows with no mismatch, ``solve_sharded`` over
+   mesh ``"4"`` on ``cuda:0`` equal to the unsharded solve; the solve's
+   host-clock ms (median of 7 after a warm-up) and the per-workspace
+   host loop's (the card machine's CPU); its device ms and device events
+   per solve come with the profiler, after 5c;
+9b. fleet placement through ``kcp start`` — phase 8's layout with
+   ``Config(fleet=True)`` (``kcp_tpu_torch.demo.fleet_front_door_load``):
+   seeded capacities and region labels on the 64 registrations, 64 roots
+   per logical cluster with seeded replicas and region labels over REST;
+   every leaf equal to ``solve_host`` on what REST holds, a
+   ``decide_and_match`` launch per fleet tick with rows; then one
+   registration's allocatable changes over REST and only its logical
+   cluster's rows re-solve, the leaves again equal to ``solve_host``.
 
-Phases 7 to 8b run right after 5b, before the profiler of 5c, so that
+Phases 7 to 9b run right after 5b, before the profiler of 5c, so that
 their host-clock readings, like those of 5 and 5b, follow no profiler
-session (phase 8's own ``/debug/trace`` comes after its readings).
+session (phase 8's own ``/debug/trace`` calls come after its readings;
+each is timed against the serving loop: the request's wall time, the
+slowest ``/healthz`` round trip meanwhile, the loop watchdog's stalls
+and the loop's CPU ops in the trace).
 
 The line before the last is the kernels' JSON record, every number in
 it measured in this run (``bound_ms`` computed from this run's inputs);
@@ -124,6 +147,11 @@ PLANE_LOGICAL, PLANE_PHYSICAL, PLANE_ROOTS = 16, 4, 256
 # root Deployments per logical cluster cut from 256 to 64 for the run's
 # time limit (at 256 the POSTs alone took 103 s on the H100)
 FRONT_ROOTS = 64
+# phase 9a: the placement benchmark's shape (BASELINE configs[2],
+# bench.py --placement): workspaces x physical clusters, spread, timed solves
+PLACE_W, PLACE_P, PLACE_SPREAD, PLACE_ITERS = 10000, 8, 2, 7
+# phase 9b: phase 8's layout with fleet placement on; roots per logical cluster
+FLEET_ROOTS = 64
 # phase 8b: the modules a child binary must not have loaded as it exits
 FORBIDDEN = ("jax", "jaxlib", "kcp_tpu")
 # phase 8b: runs a binary unchanged and, as it exits, prints the JAX and
@@ -748,13 +776,25 @@ def front_door_phase(torch, card: str) -> int:
           f"{out['usage_device']:.0f} on /metrics, {out['ledger_updates']:.0f} count batches "
           f"forwarded; /debug/trace started, wrote {out['trace']['trace']} "
           f"({os.path.getsize(out['trace']['trace'])} bytes) [{card}]")
+    for i, call in enumerate(out["trace_calls"]):
+        stalls = ", ".join(f"{x:.3f} s" for x in call["stalls_s"]) or "none"
+        steps = " ".join(f"{k[:-2]}={v:.3f}s" for k, v in call["timings_s"].items())
+        print(f"front door: /debug/trace call {i + 1} (seconds={call['seconds']}): "
+              f"answered in {call['wall_s']:.3f} s ({steps}; warm-up and export off the "
+              f"loop); /healthz meanwhile {call['healthz']} "
+              f"round trips, slowest {call['healthz_max_ms']:.1f} ms; loop watchdog stalls "
+              f"(> 1 s): {stalls}; trace holds {call['loop_cpu_ops']} CPU ops on the "
+              f"loop's thread and {call['device_kernels']} device kernels [{card}]")
+        if call["loop_cpu_ops"] == 0:
+            fail(f"front door: /debug/trace call {i + 1} holds no CPU op of the loop")
     return launches
 
 
-def _child(module: str, *args: str):
+def _child(module: str, *args: str, env_extra: dict | None = None):
     """A binary of the port as a child process, through ``WRAPPER``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (os.getcwd(), os.environ.get("PYTHONPATH", "")) if p))
+        p for p in (os.getcwd(), os.environ.get("PYTHONPATH", "")) if p),
+        **(env_extra or {}))
     env.pop("KCP_DEVICE", None)  # no --device: each uses the card
     code = WRAPPER % (FORBIDDEN, module.rsplit(".", 1)[-1], module)
     return subprocess.Popen([sys.executable, "-c", code, *args], env=env,
@@ -795,6 +835,9 @@ def binaries_phase(card: str) -> None:
         procs["kcp start"] = _child(
             "kcp_tpu_torch.cli.kcp", "start", "--in-memory", "--no-tls", "--listen-port",
             "0", "--poll-interval", "0.2")
+        procs["kcp start (KCP_FLEET=1)"] = _child(
+            "kcp_tpu_torch.cli.kcp", "start", "--in-memory", "--no-tls", "--listen-port",
+            "0", "--poll-interval", "0.2", env_extra={"KCP_FLEET": "1"})
         for name in ("kcp", "physical kcp"):
             procs[name] = _child("kcp_tpu_torch.cli.kcp", "start", "--in-memory", "--no-tls",
                                  "--no-install-controllers", "--listen-port", "0")
@@ -815,6 +858,14 @@ def binaries_phase(card: str) -> None:
         if status != 201 or got["data"] != {"a": "1"} or [
                 o["metadata"]["name"] for o in items] != ["front"] or ready != "ok":
             fail(f"kcp start: create {status}, get {got}, list {items}, readyz {ready}")
+        fleet_base = _first_line(procs["kcp start (KCP_FLEET=1)"], "kcp start (KCP_FLEET=1)")
+        status, _ = _http("POST", f"{fleet_base}/clusters/t{path}",
+                          {"metadata": {"name": "fleet"}, "data": {"a": "1"}})
+        ready = _http("GET", f"{fleet_base}/readyz")[1]
+        up = [line for line in _http("GET", f"{fleet_base}/metrics")[1].splitlines()
+              if line.startswith("fleet_scheduler_up ")]
+        if status != 201 or ready != "ok" or up != ["fleet_scheduler_up 1"]:
+            fail(f"kcp start (KCP_FLEET=1): create {status}, readyz {ready}, {up}")
         _http("POST", f"{kcp_url}/clusters/tenant{path}",
               {"metadata": {"name": "synced-cm", "labels": {"kcp.dev/cluster": "east"}},
                "data": {"from": "kcp"}})
@@ -852,9 +903,105 @@ def binaries_phase(card: str) -> None:
     print(f"binaries: kcp start with controllers served create/get/wildcard list/readyz "
           f"{served_s:.2f} s after launch; kcp + physical kcp + syncer --backend fused "
           f"downsynced the object {synced_s:.2f} s after launch (the syncer's child "
-          f"launched decide_and_match {exits['syncer'][1]['launches']} times); all "
+          f"launched decide_and_match {exits['syncer'][1]['launches']} times); kcp start "
+          f"with KCP_FLEET=1 served a create and /readyz with fleet_scheduler_up 1; all "
           f"{len(exits)} children exited 0 on SIGTERM with no jax/jaxlib/kcp_tpu module "
           f"loaded [{card}]")
+
+
+def solver_phase(torch, dev, card: str):
+    """9a. ``FleetSolver`` on the card at the placement benchmark's shape
+    (``kcp_tpu_torch.bench.placement_bench``): checks its assignment, the
+    incremental re-solve and the sharded solve, prints the host-clock
+    readings, and returns one solve on the card for the profiler."""
+    from kcp_tpu_torch.bench import placement_bench, placement_inputs
+    from kcp_tpu_torch.fleet.solver import FleetSolver, solve_host, solve_sharded
+    from kcp_tpu_torch.ops.encode import pad_pow2
+
+    out = placement_bench(dev, W=PLACE_W, P=PLACE_P, spread=PLACE_SPREAD, iters=PLACE_ITERS)
+    pb, inc = out["placement_bench"], out["placement_bench"]["incremental"]
+    if not (pb["assignment_equal_host"] and pb["assignment_equal_per_workspace"]):
+        fail(f"solver: the card's assignment differs from solve_host: {pb}")
+    if pb["overcommit_rows"] or pb["noncandidate_replicas"]:
+        fail(f"solver: {pb['overcommit_rows']} rows over demand, "
+             f"{pb['noncandidate_replicas']} replicas off a candidate")
+    if inc["rows_solved"] != inc["dirty_rows"] or inc["mismatches"]:
+        fail(f"solver: incremental re-solve {inc}")
+    x = placement_inputs(PLACE_W, PLACE_P)
+    args = [x[k] for k in ("demand", "cand", "alloc", "region", "home")]
+    host = solve_host(*args, PLACE_SPREAD)
+    sharded = solve_sharded(smoke_mesh("4", dev), *args, PLACE_SPREAD)
+    if not np.array_equal(sharded, host):
+        fail("solver: solve_sharded over mesh 4 differs from the unsharded solve")
+    print(f"solver: FleetSolver on {out['device']} at {PLACE_W} workspaces x {PLACE_P} "
+          f"physical clusters (padded to {pad_pow2(PLACE_W)} x {pad_pow2(PLACE_P)}), spread "
+          f"{PLACE_SPREAD}: assignment byte-equal to solve_host ({pb['total_replicas']} "
+          f"replicas), 0 rows over demand, 0 replicas off a candidate; incremental re-solve "
+          f"of {inc['dirty_rows']} dirty rows solved {inc['rows_solved']} rows, "
+          f"{inc['mismatches']} mismatches; solve_sharded over mesh 4 (cuda:0 x4) equal "
+          f"[{card}]")
+    print(f"solver: one solve {pb['batched_ms_median']:.3f} ms median, {pb['batched_ms']:.3f} "
+          f"ms mean of {PLACE_ITERS} after a warm-up (host clock, the copy back is its sync) "
+          f"[{card}]; the per-workspace host loop (solve_host per row, the card machine's "
+          f"CPU) {pb['per_workspace_ms']:.3f} ms for {PLACE_W} rows")
+    solver = FleetSolver(spread=PLACE_SPREAD, device=dev)
+    return lambda: solver.solve(*args)
+
+
+def solver_device_phase(solve, torch, card: str, calls: int = 5) -> None:
+    """9a, the profiler's half: device ms and device events per solve."""
+    solve()
+    _wall, ev = device_profile(lambda: [solve() for _ in range(calls)], torch)
+    if not ev:
+        print("solver: the profiler saw no device time: device ms not measured")
+        return
+    n = sum(c for c, _us in ev.values()) / calls
+    us = sum(u for _c, u in ev.values()) / calls
+    top = sorted(ev.items(), key=lambda kv: -kv[1][1])[:4]
+    print(f"solver: per solve {us / 1e3:.4f} ms of device time in {n:.1f} device events "
+          f"(torch.profiler, {calls} solves); top: "
+          + "; ".join(f"{k[:50]} x{c / calls:.0f} {u / calls:.1f} us" for k, (c, u) in top)
+          + f" [{card}]")
+
+
+def fleet_phase(torch, card: str) -> int:
+    """9b. Fleet placement through kcp start's server on the card:
+    ``kcp_tpu_torch.demo.fleet_front_door_load`` checks every leaf against
+    ``solve_host``, a launch per fleet tick with rows, and the capacity
+    change's row set, and raises on the first check that fails. Returns
+    the phase's kernel launches."""
+    from kcp_tpu_torch import demo
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match
+
+    decide_and_match.launches = 0
+    try:
+        out = demo.fleet_front_door_load(None, PLANE_LOGICAL, PLANE_PHYSICAL, FLEET_ROOTS,
+                                         seed=9)
+    except RuntimeError as err:
+        fail(f"fleet placement: {err}")
+    torch.cuda.synchronize()
+    launches = decide_and_match.launches
+    if launches == 0:
+        fail("fleet placement: decide_and_match never launched")
+    cc = out["capacity_change"]
+    print(f"fleet placement: kcp start (Config(fleet=True), spread {out['spread']}) over "
+          f"{out['physical']} fake physical clusters registered by {out['logical']} logical "
+          f"clusters with seeded capacities and regions; {out['roots']} roots POSTed in "
+          f"{out['posted_s']:.2f} s -> {out['leaves']} leaves; first root POST -> every leaf "
+          f"equal to solve_host (read over REST) {out['placed_s']:.2f} s, -> every leaf "
+          f"downstream {out['downstream_s']:.2f} s; {out['ticks']} fleet ticks "
+          f"({out['empty_ticks']} without rows), decide_and_match launches "
+          f"{out['launches']} in the window ({launches} in the phase) [{card}]")
+    print(f"fleet placement: fleet_solve_seconds {out['fleet_solve_s']:.4f} s over "
+          f"{out['fleet_solves']} solves in the window ("
+          f"{out['fleet_solve_s'] / max(out['fleet_solves'], 1) * 1e3:.3f} ms each); "
+          f"scheduler {out['scheduler']}; solver {out['solver']} [{card}]")
+    print(f"fleet placement: {cc['registration']} allocatable -> {cc['allocatable']} over "
+          f"REST: leaves equal solve_host again {cc['replaced_s']:.2f} s later, "
+          f"{cc['leaves_changed']} logical cluster's leaves moved; {cc['solves']} solves "
+          f"after it, the first of {cc['first_solve_rows']} rows (that logical cluster's "
+          f"roots), every one within it; rows_solved rose {cc['rows_solved']} [{card}]")
+    return launches
 
 
 def main() -> None:
@@ -958,6 +1105,12 @@ def main() -> None:
     front_launches = front_door_phase(torch, card)
     binaries_phase(card)
 
+    # ---- 9a. the fleet solver at the placement benchmark's shape; 9b.
+    #          fleet placement through kcp start (host clock, before the
+    #          profiler too)
+    solve = solver_phase(torch, dev, card)
+    fleet_launches = fleet_phase(torch, card)
+
     # ---- 3, 3b: the kernels' device times; 4, 4b: no index_add_ in either
     #          step (profiled, so after the main path's readings)
     device_times(timed, card)
@@ -965,6 +1118,7 @@ def main() -> None:
     assert_no_index_add(sharded_step, "sharded step")
     print("step, sharded step: no index_add_ (profiler, CPU activity)")
     del gpu, sharded_step
+    solver_device_phase(solve, torch, card)
 
     # ---- 5c. where the device time goes: a short profiled closed loop
     #          (after the counts above were read; not part of the record)
@@ -992,7 +1146,7 @@ def main() -> None:
     record.update(name="decide_and_match", route="cuda",
                   source="kcp_tpu_torch/csrc/decide_match.cu",
                   replaces="kcp_tpu/ops/pallas_kernels.py:129",
-                  launches=launches + front_launches,
+                  launches=launches + front_launches + fleet_launches,
                   library_ms=None)
     record_sharded.update(name="decide_and_match_sharded", route="cuda",
                           source="kcp_tpu_torch/csrc/decide_match.cu",

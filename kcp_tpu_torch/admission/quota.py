@@ -52,7 +52,7 @@ import time
 
 import numpy as np
 
-from ..utils.locks import make_lock
+from ..analysis.sanitize import make_lock
 from ..faults import maybe_fail
 from ..utils.errors import ForbiddenError
 from ..utils.trace import REGISTRY

@@ -2,7 +2,7 @@
 ``kcp_tpu.analysis.sanitize``): the data contracts crash
 loudly at the violating line instead of corrupting silently.
 
-Enforcement surfaces, all off (near-zero cost: one module-attr
+Three enforcement surfaces, all off (near-zero cost: one module-attr
 read per site) unless enabled:
 
 - **CoW snapshots freeze**: every object the store commits is deep-
@@ -18,17 +18,22 @@ read per site) unless enabled:
   stale entry raises instead of serving corrupt bytes to every watcher.
   (Python ``bytes`` are immutable, so the attack surface is the cache
   *slots* — an overwritten ``_enc_line`` or ``_enc_bytes`` entry.)
-The port's copy carries the first two; lock-order tracking stays with
-the reference (the port's locks come from ``utils/locks.make_lock``).
+- **Lock-order tracking**: locks built through :func:`make_lock` record
+  held->acquired pairs per thread into one global digraph and assert the
+  same acyclicity the static ``lock-order`` checker proves — but over
+  *observed* orders, including cross-module ones the AST cannot see. A
+  cycle raises at the second lock's acquire, before it can deadlock.
 
 Enable with ``KCP_SANITIZE=1`` (read once), or programmatically via
-:func:`enable` in tests.
+:func:`enable` in tests. Every named lock of the port comes from
+:func:`make_lock`.
 """
 
 from __future__ import annotations
 
 import copy as _copy
 import os
+import threading
 from typing import Any, Iterable
 
 __all__ = [
@@ -146,6 +151,114 @@ def thaw(obj: Any) -> Any:
     if isinstance(obj, list):
         return [thaw(v) for v in obj]
     return obj
+
+
+# ---------------------------------------------------------------------------
+# Lock-order tracking
+# ---------------------------------------------------------------------------
+
+class _HeldStacks(threading.local):
+    def __init__(self) -> None:
+        self.stack: list[str] = []
+
+
+_HELD = _HeldStacks()
+_GRAPH_LOCK = threading.Lock()  # guards the edge graph only, never user code
+_EDGES: dict[str, set[str]] = {}
+
+
+def lock_edges() -> dict[str, set[str]]:
+    """Snapshot of the observed acquisition graph (tests/debugging)."""
+    with _GRAPH_LOCK:
+        return {k: set(v) for k, v in _EDGES.items()}
+
+
+def reset_lock_tracking() -> None:
+    with _GRAPH_LOCK:
+        _EDGES.clear()
+    _HELD.stack.clear()
+
+
+def _path_exists(src: str, dst: str) -> list[str] | None:
+    """DFS path src -> dst in the edge graph (caller holds _GRAPH_LOCK)."""
+    seen = {src}
+    stack: list[tuple[str, list[str]]] = [(src, [src])]
+    while stack:
+        node, path = stack.pop()
+        for nxt in _EDGES.get(node, ()):
+            if nxt == dst:
+                return path + [dst]
+            if nxt not in seen:
+                seen.add(nxt)
+                stack.append((nxt, path + [nxt]))
+    return None
+
+
+class TrackedLock:
+    """A ``threading.Lock`` recording held->acquired pairs; acquiring in
+    an order that closes a cycle in the global graph raises BEFORE the
+    deadlock can happen."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._inner = threading.Lock()
+
+    def _check_order(self) -> None:
+        held = _HELD.stack
+        if not held:
+            return
+        with _GRAPH_LOCK:
+            for h in held:
+                if h == self.name:
+                    continue
+                outs = _EDGES.setdefault(h, set())
+                if self.name in outs:
+                    continue
+                path = _path_exists(self.name, h)
+                if path is not None:
+                    raise ContractViolation(
+                        "lock-order",
+                        f"acquiring {self.name!r} while holding {h!r} "
+                        f"inverts the established order "
+                        f"{' -> '.join(path)} — two threads taking these "
+                        f"in opposite orders deadlock; acquire locks in "
+                        f"one global order")
+                outs.add(self.name)
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        self._check_order()
+        got = self._inner.acquire(blocking, timeout)
+        if got:
+            _HELD.stack.append(self.name)
+        return got
+
+    def release(self) -> None:
+        self._inner.release()
+        stack = _HELD.stack
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i] == self.name:
+                del stack[i]
+                break
+
+    def locked(self) -> bool:
+        return self._inner.locked()
+
+    def __enter__(self) -> "TrackedLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.release()
+
+
+def make_lock(name: str) -> "threading.Lock | TrackedLock":
+    """The lock factory for the port's locks: a plain ``threading.Lock``
+    normally, a :class:`TrackedLock` under the sanitizer. The ``name``
+    doubles as the lock's node id in both the runtime graph and the
+    static ``lock-order`` checker, so the two passes agree."""
+    if enabled():
+        return TrackedLock(name)
+    return threading.Lock()
 
 
 # ---------------------------------------------------------------------------

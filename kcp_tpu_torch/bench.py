@@ -18,6 +18,14 @@ Metrics (the definitions of ``bench.py``):
 
 Run with ``python -m kcp_tpu_torch.bench`` (the card by default,
 ``--device cpu`` for a host run at a small size).
+
+``--placement`` runs the fleet bin-pack lane instead (the port of
+``bench.py --placement``, BASELINE configs[2]): 10,000 workspaces x 8
+physical clusters with lognormal-skewed capacity solved as one device
+batch through ``FleetSolver``, against the per-workspace host loop of
+``solve_host``, plus the 37-row incremental re-solve; one JSON line
+with the reference's keys. ``KCP_BENCH_PLACEMENT_*`` set the sizes as
+they do in the reference.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import time
 
 import numpy as np
@@ -160,6 +169,93 @@ async def closed_loop(core: FusedCore, rows: int, slots: int = 64,
     }
 
 
+def placement_inputs(W: int = 10000, P: int = 8, dirty: int = 37) -> dict:
+    """The placement lane's inputs from seed 17, drawn in the reference's
+    order (``bench.py`` ``placement_bench``): demand, lognormal capacity,
+    90 % candidates, 4 regions, home regions in -1..3 (-1 matches none),
+    then the incremental lane's dirty rows and their new candidates."""
+    rng = np.random.default_rng(17)
+    out = {
+        "demand": rng.integers(0, 48, W).astype(np.int32),
+        "alloc": np.clip(rng.lognormal(3.0, 1.2, P), 1, 30000).astype(np.int32),
+        "cand": rng.random((W, P)) < 0.9,
+        "region": rng.integers(0, 4, P).astype(np.int32),
+        "home": rng.integers(-1, 4, W).astype(np.int32),
+    }
+    idx = rng.choice(W, size=min(dirty, W), replace=False)
+    cand2 = out["cand"].copy()
+    cand2[idx] = rng.random((idx.size, P)) < 0.7
+    out.update(dirty_rows=idx, cand2=cand2)
+    return out
+
+
+def placement_bench(device=None, mesh=None, W: int = 10000, P: int = 8,
+                    spread: int = 2, iters: int = 5, loop_rows: int = 0,
+                    dirty: int = 37) -> dict:
+    """Fleet bin-pack A/B (BASELINE configs[2]): one batched solve on
+    ``device`` (or sharded over ``mesh``) against the per-workspace host
+    loop, which may sample ``loop_rows`` rows and extrapolate. The
+    assignment must equal ``solve_host``'s; the incremental re-solve
+    must touch exactly the dirty rows. Times are host-clock seconds of
+    ``FleetSolver.solve`` (its copy back is the solve's sync): the mean
+    over ``iters`` (the reference's ``batched_ms``) and their median."""
+    from .fleet.solver import FleetSolver, solve_host
+
+    x = placement_inputs(W, P, dirty)
+    demand, alloc, cand, region, home = (x[k] for k in ("demand", "alloc", "cand",
+                                                       "region", "home"))
+    loop_rows = min(loop_rows or W, W)
+    solver = FleetSolver(spread=spread, device=device, mesh=mesh)
+    solver.solve(demand, cand, alloc, region, home)  # warm-up
+    each = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        dev = solver.solve(demand, cand, alloc, region, home)
+        each.append(time.perf_counter() - t0)
+    batched_s = sum(each) / iters
+    # solve() returns the solver's live cache: snapshot it before the
+    # incremental lane below scatters the dirty-row delta into it
+    dev = dev.copy()
+    host = solve_host(demand, cand, alloc, region, home, spread)
+    per = np.zeros_like(host)
+    t0 = time.perf_counter()
+    for i in range(loop_rows):
+        per[i] = solve_host(demand[i:i + 1], cand[i:i + 1], alloc, region,
+                            home[i:i + 1], spread)[0]
+    loop_s = (time.perf_counter() - t0) * (W / max(loop_rows, 1))
+    idx, cand2 = x["dirty_rows"], x["cand2"]
+    before = solver.stats["rows_solved"]
+    dev2 = solver.solve(demand, cand2, alloc, region, home, rows=[int(i) for i in idx])
+    inc_rows = solver.stats["rows_solved"] - before
+    host2 = solve_host(demand, cand2, alloc, region, home, spread)
+    return {
+        "metric": "placement_batched_speedup",
+        "value": round(loop_s / max(batched_s, 1e-9), 2),
+        "unit": "x",
+        "placement_bench": {
+            "workspaces": W, "pclusters": P, "spread": spread,
+            "iters": iters, "loop_rows_sampled": loop_rows,
+            "batched_ms": round(batched_s * 1e3, 3),
+            "batched_ms_median": round(float(np.median(each)) * 1e3, 3),
+            "per_workspace_ms": round(loop_s * 1e3, 3),
+            "batched_rows_per_s": int(W / max(batched_s, 1e-9)),
+            "per_workspace_rows_per_s": int(W / max(loop_s, 1e-9)),
+            "assignment_equal_host": bool((dev == host).all()),
+            "assignment_equal_per_workspace": bool(
+                (per[:loop_rows] == host[:loop_rows]).all()),
+            "total_replicas": int(host.sum()),
+            "overcommit_rows": int((dev.sum(axis=1) > demand).sum()),
+            "noncandidate_replicas": int(dev[~cand].sum()),
+            "incremental": {
+                "dirty_rows": int(idx.size),
+                "rows_solved": int(inc_rows),
+                "mismatches": int((dev2 != host2).any(axis=1).sum()),
+            },
+        },
+        "device": str(solver.device),
+    }
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -167,7 +263,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--churn", type=int, default=768)
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--pipeline", choices=("serial", "double"), default=None)
+    ap.add_argument("--placement", action="store_true",
+                    help="run the fleet bin-pack lane (BASELINE configs[2])")
     args = ap.parse_args(argv)
+    if args.placement:
+        env = lambda name, default: int(os.environ.get(  # noqa: E731
+            f"KCP_BENCH_PLACEMENT_{name}", "") or default)
+        print(json.dumps(placement_bench(
+            args.device, W=env("WORKSPACES", 10000), P=env("PCLUSTERS", 8),
+            spread=env("SPREAD", 2), iters=env("ITERS", 5),
+            loop_rows=env("LOOP_ROWS", 0), dirty=env("DIRTY_ROWS", 37))))
+        return
     core = FusedCore(batch_window=0.0005, pipeline=args.pipeline, device=args.device)
     out = asyncio.run(closed_loop(core, args.rows, churn=args.churn,
                                   seconds=args.seconds))

@@ -17,7 +17,9 @@ that many copies of the device (``"4"``, ``"4x2"``).
 
 ``controller_plane_load`` runs the same controllers at a fleet's size in
 one loop; ``front_door_load`` runs that fleet through ``kcp start``'s
-``Server``, driven over REST from another thread.
+``Server``, driven over REST from another thread, and
+``fleet_front_door_load`` the same with fleet placement on
+(``Config(fleet=True)``: the ``FleetScheduler`` and its solver).
 
 Usage:
     python -m kcp_tpu_torch.demo [apiNegotiation|kubecon|all] [--check]
@@ -375,6 +377,69 @@ def _until(pred, timeout: float, what: str, interval: float = 0.2):
     raise RuntimeError(f"timed out waiting for {what} (last={last!r})")
 
 
+def _front_door_server(device, pcs: list, timeout: float, **config):
+    """``kcp start``'s ``Server`` in a ``ServerThread`` (in memory, TLS
+    off, clusters and imports polled every 0.2 s, APIs published
+    automatically, controllers on ``device``) and a ``FakeClusterAgent``
+    for each fake physical cluster of ``pcs``: (the thread, {pc: its
+    store}, the agents). Stop both with ``_stop_front_door``."""
+    from .server import Config
+    from .server.threaded import ServerThread
+
+    registry = PhysicalRegistry()
+    st = ServerThread(Config(durable=False, tls=False, poll_interval=0.2,
+                             import_poll_interval=0.2, auto_publish_apis=True,
+                             device=device, **config), registry=registry).start(timeout)
+    phys = {pc: registry.resolve(f"fake://{pc}") for pc in pcs}
+    agents: list[FakeClusterAgent] = []
+
+    async def start_agents():
+        for pc in pcs:
+            agent = FakeClusterAgent(phys[pc])
+            await agent.start()
+            agents.append(agent)
+
+    try:
+        st.submit(start_agents())
+    except BaseException:
+        _stop_front_door(st, agents)
+        raise
+    return st, phys, agents
+
+
+def _stop_front_door(st, agents) -> None:
+    if st.server is not None and agents:
+        st.submit(_stop_agents(agents))
+    st.stop()
+
+
+def _wait_registered(st, scoped: dict, lcs: list, pcs: list, timeout: float) -> None:
+    """Until every logical cluster's ``<lc>-<pc>`` registrations have push
+    syncers, Compatible+Available Deployment imports, and are Ready."""
+    clusters = next(c for c in st.server._controllers if isinstance(c, ClusterController))
+
+    def ready() -> bool:
+        return (st.call(lambda: len(clusters.syncers)) == len(lcs) * len(pcs)
+                and all(ar.is_compatible_and_available(scoped[lc].get(
+                    ar.APIRESOURCEIMPORTS, f"{lc}-{pc}.deployments.v1.apps"))
+                    for lc in lcs for pc in pcs)
+                and all("deployments.apps" in clusterapi.synced_resources(c)
+                        and clusterapi.is_ready(c)
+                        for lc in lcs for c in scoped[lc].list(clusterapi.CLUSTERS)[0]))
+
+    _until(ready, timeout, "every import Compatible+Available, every cluster Ready")
+
+
+def _ticks_launches(core) -> tuple[int, int, int]:
+    """The fleet batch's ticks and ticks without rows, and the kernel's
+    launches; read on the server loop, where a tick's launch and its
+    count happen in one synchronous step."""
+    from .ops.cuda_kernels import decide_and_match
+
+    stats = core._fleet.stats if core._fleet is not None else {}
+    return stats.get("ticks", 0), stats.get("empty_ticks", 0), decide_and_match.launches
+
+
 def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
                     roots: int = 256, seed: int = 0, timeout: float = 300.0,
                     trace_dir: str | None = None) -> dict:
@@ -398,7 +463,9 @@ def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
     Deployments count equal to the leaves its push syncers hold,
     ``quota_usage_device`` on ``/metrics`` equal to all leaves); nothing
     quarantined; and, when ``trace_dir`` is given, ``/debug/trace``
-    started and wrote its trace there. Returns the readings of the window
+    started and wrote its trace there, twice (``_traced_call``: each
+    call's stall of the serving loop is under ``trace_calls``, the first
+    call under ``trace``). Returns the readings of the window
     from the first root POST: to the last leaf downstream and to the last
     root aggregated, the creates' client-side latencies, the server's
     admission and tick-phase seconds, the process's CPU seconds, fleet
@@ -410,9 +477,7 @@ def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
     import numpy as np
 
     from .apis.cluster import new_cluster
-    from .ops.cuda_kernels import decide_and_match
-    from .server import Config, MultiClusterRestClient
-    from .server.threaded import ServerThread
+    from .server import MultiClusterRestClient
     from .utils.trace import REGISTRY
 
     dev = resolve_device(device)
@@ -420,18 +485,7 @@ def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
     pcs = [f"pc-{j}" for j in range(n_physical)]
     replicas, want = _seeded_roots(seed, n_logical, n_physical, roots)
     n_leaves = n_logical * roots * n_physical
-    registry = PhysicalRegistry()
-    st = ServerThread(Config(durable=False, tls=False, poll_interval=0.2,
-                             import_poll_interval=0.2, auto_publish_apis=True,
-                             device=device), registry=registry).start(timeout)
-    agents: list[FakeClusterAgent] = []
-    phys = {pc: registry.resolve(f"fake://{pc}") for pc in pcs}
-
-    async def start_agents():
-        for pc in pcs:
-            agent = FakeClusterAgent(phys[pc])
-            await agent.start()
-            agents.append(agent)
+    st, phys, agents = _front_door_server(device, pcs, timeout)
 
     def counter(name: str) -> float:
         return REGISTRY.counter(name).value
@@ -441,7 +495,6 @@ def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
         return h["count"], h["count"] * h["mean"]
 
     try:
-        st.submit(start_agents())
         mc = MultiClusterRestClient(st.address)
         scoped = {lc: mc.cluster_client(lc) for lc in lcs}
         quarantined0 = counter("quarantined_rows")
@@ -449,32 +502,14 @@ def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
         for lc in lcs:
             for pc in pcs:
                 scoped[lc].create(clusterapi.CLUSTERS, new_cluster(f"{lc}-{pc}", f"fake://{pc}"))
-        controllers = st.server._controllers
-        clusters = next(c for c in controllers if isinstance(c, ClusterController))
-        splitter = next(c for c in controllers if isinstance(c, DeploymentSplitter))
-
-        def ready() -> bool:
-            return (st.call(lambda: len(clusters.syncers)) == n_logical * n_physical
-                    and all(ar.is_compatible_and_available(scoped[lc].get(
-                        ar.APIRESOURCEIMPORTS, f"{lc}-{pc}.deployments.v1.apps"))
-                        for lc in lcs for pc in pcs)
-                    and all("deployments.apps" in clusterapi.synced_resources(c)
-                            and clusterapi.is_ready(c)
-                            for lc in lcs for c in scoped[lc].list(clusterapi.CLUSTERS)[0]))
-
-        _until(ready, timeout, "every import Compatible+Available, every cluster Ready")
+        _wait_registered(st, scoped, lcs, pcs, timeout)
         ready_s = time.perf_counter() - t0
+        splitter = next(c for c in st.server._controllers
+                        if isinstance(c, DeploymentSplitter))
         core = splitter.core
         ledger = st.server.handler.admission.ledger
 
-        def ticks_launches() -> tuple[int, int, int]:
-            # read on the server loop, where a tick's launch and its count
-            # happen in one synchronous step
-            stats = core._fleet.stats if core._fleet is not None else {}
-            return (stats.get("ticks", 0), stats.get("empty_ticks", 0),
-                    decide_and_match.launches)
-
-        start = st.call(ticks_launches)
+        start = st.call(_ticks_launches, core)
         updates0 = counter("fused_fleet_ledger_updates_total")
         adm0, phases0 = histogram_s("admission_seconds"), _tick_phase_totals()
         cpu0 = time.process_time()
@@ -511,7 +546,7 @@ def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
         adm1 = histogram_s("admission_seconds")
         phases = {k: v - phases0.get(k, 0.0) for k, v in _tick_phase_totals().items()}
         ticks, empty_ticks, launches = (
-            a - b for a, b in zip(st.call(ticks_launches), start))
+            a - b for a, b in zip(st.call(_ticks_launches, core), start))
 
         _check_leaves(st.call(lambda: {pc: {o["metadata"]["name"]: o["spec"]["replicas"]
                                             for o in phys[pc].list("deployments.apps")[0]}
@@ -526,6 +561,7 @@ def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
 
         _until(lambda: set(lane().values()) == {per_lc}, 30.0,
                f"the ledger's device lane at {per_lc} Deployments per logical cluster")
+        device_lane = lane()
         updates = counter("fused_fleet_ledger_updates_total") - updates0
         if updates <= 0:
             raise RuntimeError("the fleet batch forwarded no counts to the ledger")
@@ -535,13 +571,16 @@ def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
                  if line.startswith("quota_usage_device ")]
         if usage != [float(n_leaves)]:
             raise RuntimeError(f"quota_usage_device on /metrics: {usage}, want {n_leaves}")
-        trace = None
+        trace, trace_calls = None, []
         if trace_dir is not None:
-            url = f"{st.address}/debug/trace?seconds=0.5&dir={trace_dir}"
-            with urllib.request.urlopen(url, timeout=60) as r:
-                trace = json.loads(r.read())
-            if not trace.get("started") or not os.path.exists(trace.get("trace", "")):
-                raise RuntimeError(f"/debug/trace: {trace}")
+            # a first and a second call, each timed against the loop
+            for i in range(2):
+                call = _traced_call(st, scoped[lcs[0]], os.path.join(trace_dir, f"call-{i}"),
+                                    0.5, f"traced-{i}")
+                if not call.get("started") or not os.path.exists(call.get("trace", "")):
+                    raise RuntimeError(f"/debug/trace: {call}")
+                trace_calls.append(call)
+            trace = trace_calls[0]
         quarantined = counter("quarantined_rows") - quarantined0
         if quarantined:
             raise RuntimeError(f"{quarantined} rows quarantined")
@@ -554,12 +593,254 @@ def front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
                     admissions=adm1[0] - adm0[0], admission_s=adm1[1] - adm0[1],
                     tick_phases_s={k: v for k, v in phases.items() if v > 0},
                     cpu_s=cpu_s, ticks=ticks, empty_ticks=empty_ticks, launches=launches,
-                    ledger_updates=updates, device_lane=lane(), usage_device=usage[0],
-                    trace=trace)
+                    ledger_updates=updates, device_lane=device_lane, usage_device=usage[0],
+                    trace=trace, trace_calls=trace_calls)
     finally:
-        if st.server is not None and agents:
-            st.submit(_stop_agents(agents))
-        st.stop()
+        _stop_front_door(st, agents)
+
+
+def _traced_call(st, client, trace_dir: str, seconds: float, root: str) -> dict:
+    """One ``/debug/trace?seconds=`` call to ``st``'s server, timed against
+    its serving loop: another thread round-trips ``/healthz`` every 20 ms
+    meanwhile, a root Deployment named ``<root>-<k>`` is created through
+    ``client`` every ``seconds / 4`` until the call returns (so the loop
+    runs device work inside the trace), and the loop watchdog's stalls
+    (over its 1 s threshold) are read before and after. Adds to the
+    handler's reply: the call's wall seconds, the /healthz round trips
+    (count, slowest ms), the watchdog's new stalls, and, from the trace
+    file, the CPU op events on the loop's thread and the device kernels."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    stop, rtts = threading.Event(), []
+
+    def ping():
+        while not stop.is_set():
+            t = time.perf_counter()
+            with urllib.request.urlopen(f"{st.address}/healthz", timeout=120) as r:
+                r.read()
+            rtts.append(time.perf_counter() - t)
+            stop.wait(0.02)
+
+    def create():
+        for k in range(1000):
+            if stop.wait(seconds / 4):
+                return
+            client.create("deployments.apps", _root(0, 1) | {"metadata": {
+                "name": f"{root}-{k}", "namespace": "default"}})
+
+    watchdog = st.server._watchdog
+    n0 = len(watchdog.stalls)
+    threads = [threading.Thread(target=ping, daemon=True),
+               threading.Thread(target=create, daemon=True)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    url = f"{st.address}/debug/trace?seconds={seconds}&dir={trace_dir}"
+    with urllib.request.urlopen(url, timeout=120) as r:
+        body = json.loads(r.read())
+    body["wall_s"] = time.perf_counter() - t0
+    stop.set()
+    for t in threads:
+        t.join(120)
+    body.update(healthz=len(rtts), healthz_max_ms=max(rtts, default=0.0) * 1e3,
+                stalls_s=list(watchdog.stalls[n0:]), loop_cpu_ops=0, device_kernels=0)
+    if os.path.exists(body.get("trace", "")):
+        loop_tid = st._thread.native_id
+        for e in json.load(open(body["trace"])).get("traceEvents", []):
+            if e.get("cat") == "cpu_op" and e.get("tid") == loop_tid:
+                body["loop_cpu_ops"] += 1
+            elif e.get("cat") == "kernel":
+                body["device_kernels"] += 1
+    return body
+
+
+def fleet_front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
+                          roots: int = 64, seed: int = 0, timeout: float = 300.0) -> dict:
+    """``kcp start`` with fleet placement (``Config(fleet=True)``): the
+    front door's layout and cadence (a ``Server`` in a ``ServerThread``,
+    in memory, TLS off, 0.2 s polls, ``n_physical`` fake physical
+    clusters registered by every logical cluster as ``<lc>-pc-<j>``),
+    where each registration carries a seeded capacity
+    (``apis/cluster.set_capacity``, lognormal as the placement benchmark's)
+    and its physical cluster's region label, and ``roots`` root
+    Deployments per logical cluster carry seeded replicas in 1..100 and
+    seeded ``fleet.kcp.dev/region`` labels (some none), POSTed over REST.
+    ``KCP_FLEET_SPREAD`` is 2 while the server starts (the placement
+    benchmark's spread).
+
+    Checks, raising RuntimeError on the first that fails: every leaf (read
+    over REST) carries the replicas ``fleet.solver.solve_host`` gives on
+    the clusters and roots read back over REST, and every leaf reaches its
+    physical cluster; on a card, ``decide_and_match`` launched at least
+    once per fleet tick with rows. Then ``lc-00-pc-0``'s
+    ``status.allocatable`` changes over REST: the first solve after it
+    re-solves exactly that logical cluster's ``roots`` rows, every solve
+    after it only rows of that logical cluster, and the leaves again equal
+    ``solve_host``. Returns the readings: the window from the first root
+    POST to the last leaf placed, the re-placement after the change, the
+    scheduler's and the solver's stats, ``fleet_solve_seconds``, fleet
+    ticks and kernel launches."""
+    import time
+
+    import numpy as np
+
+    from .apis.cluster import new_cluster, set_capacity
+    from .fleet.scheduler import FleetScheduler
+    from .fleet.solver import solve_host
+    from .server import MultiClusterRestClient
+    from .syncer.core import FusedCore
+    from .utils.errors import ConflictError
+    from .utils.trace import REGISTRY
+
+    dev = resolve_device(device)
+    spread = 2
+    lcs = [f"lc-{i:02d}" for i in range(n_logical)]
+    pcs = [f"pc-{j}" for j in range(n_physical)]
+    regions = [f"region-{j}" for j in range(4)]
+    rng = np.random.default_rng(seed)
+    replicas = rng.integers(1, 101, (n_logical, roots)).astype(np.int32)
+    home = rng.integers(-1, len(regions), (n_logical, roots))  # -1: no label
+    caps = np.clip(rng.lognormal(3.0, 1.2, (n_logical, n_physical)), 1, 30000).astype(int)
+    saved = os.environ.get("KCP_FLEET_SPREAD")
+    os.environ["KCP_FLEET_SPREAD"] = str(spread)
+    try:
+        st, phys, agents = _front_door_server(device, pcs, timeout, fleet=True)
+    finally:
+        if saved is None:
+            os.environ.pop("KCP_FLEET_SPREAD")
+        else:
+            os.environ["KCP_FLEET_SPREAD"] = saved
+
+    def expected(scoped) -> dict:
+        """{lc: {leaf name: replicas}} from solve_host on what REST holds."""
+        rid = {"": 0, **{r: i + 1 for i, r in enumerate(regions)}}
+        out = {}
+        for lc in lcs:
+            cl = {c["metadata"]["name"]: c for c in scoped[lc].list(clusterapi.CLUSTERS)[0]}
+            cols = [cl[f"{lc}-{pc}"] for pc in pcs]
+            rs = sorted((o for o in scoped[lc].list("deployments.apps")[0] if is_root(o)),
+                        key=lambda o: int(o["metadata"]["name"].split("-")[1]))
+            counts = solve_host(
+                [o["spec"]["replicas"] for o in rs], np.ones((len(rs), len(cols)), bool),
+                [clusterapi.allocatable_of(c) for c in cols],
+                [rid.get(clusterapi.region_of(c), -1) for c in cols],
+                [rid.get((o["metadata"].get("labels") or {}).get(clusterapi.REGION_LABEL, ""), -1)
+                 for o in rs], spread)
+            out[lc] = {f"{o['metadata']['name']}--{lc}-{pc}": int(counts[k, j])
+                       for k, o in enumerate(rs) for j, pc in enumerate(pcs) if counts[k, j]}
+        return out
+
+    def leaves(scoped) -> dict:
+        return {lc: {o["metadata"]["name"]: o["spec"]["replicas"]
+                     for o in scoped[lc].list("deployments.apps")[0] if not is_root(o)}
+                for lc in lcs}
+
+    def solve_s() -> tuple[int, float]:
+        h = REGISTRY.snapshot().get("fleet_solve_seconds") or {"count": 0, "mean": 0.0}
+        return h["count"], h["count"] * h["mean"]
+
+    try:
+        mc = MultiClusterRestClient(st.address)
+        scoped = {lc: mc.cluster_client(lc) for lc in lcs}
+        for i, lc in enumerate(lcs):
+            for j, pc in enumerate(pcs):
+                obj = new_cluster(f"{lc}-{pc}", f"fake://{pc}")
+                set_capacity(obj, int(caps[i, j]), region=regions[j % len(regions)])
+                scoped[lc].create(clusterapi.CLUSTERS, obj)
+        _wait_registered(st, scoped, lcs, pcs, timeout)
+        sched = next(c for c in st.server._controllers if isinstance(c, FleetScheduler))
+        # the loop's core, which the push syncers share (the splitter
+        # joins none: the scheduler took its placement lanes' decision)
+        core = st.call(lambda: FusedCore.for_current_loop(device=dev))
+        solved: list = []
+
+        def record():
+            # every solve's row set, recorded on the server loop
+            solve = sched.solver.solve
+
+            def recording(*args, rows=None, **kw):
+                solved.append(None if rows is None else list(rows))
+                return solve(*args, rows=rows, **kw)
+            sched.solver.solve = recording
+
+        st.call(record)
+
+        start, solve0 = st.call(_ticks_launches, core), solve_s()
+        t1 = time.perf_counter()
+        for i, lc in enumerate(lcs):
+            for k in range(roots):
+                root = _root(k, int(replicas[i, k]))
+                if home[i, k] >= 0:
+                    root["metadata"]["labels"] = {clusterapi.REGION_LABEL: regions[home[i, k]]}
+                scoped[lc].create("deployments.apps", root)
+        posted_s = time.perf_counter() - t1
+        want = expected(scoped)
+        _until(lambda: leaves(scoped) == want, timeout, "every leaf equal to solve_host", 0.1)
+        placed_s = time.perf_counter() - t1
+        n_leaves = sum(len(v) for v in want.values())
+        _until(lambda: st.call(lambda: sum(len(c.list("deployments.apps")[0])
+                                           for c in phys.values())) == n_leaves,
+               timeout, "every leaf downstream", 0.05)
+        downstream_s = time.perf_counter() - t1
+        ticks, empty_ticks, launches = (
+            a - b for a, b in zip(st.call(_ticks_launches, core), start))
+        if dev.type == "cuda" and launches < ticks - empty_ticks:
+            raise RuntimeError(f"decide_and_match launched {launches} times in "
+                               f"{ticks} fleet ticks, {empty_ticks} of them without rows")
+        solves = solve_s()
+        solves = (solves[0] - solve0[0], solves[1] - solve0[1])
+
+        # settle: no solve for a second, then move one registration's capacity
+        def settled() -> bool:
+            n = len(solved)
+            time.sleep(1.0)
+            return len(solved) == n
+        _until(settled, timeout, "the scheduler to settle", 0.0)
+        first = len(solved)
+        stats0 = st.call(lambda: dict(sched.solver.stats))
+        rows0 = stats0["rows_solved"]
+        target = f"{lcs[0]}-{pcs[0]}"
+        t2 = time.perf_counter()
+        for _ in range(50):
+            obj = scoped[lcs[0]].get(clusterapi.CLUSTERS, target)
+            new_alloc = clusterapi.allocatable_of(obj) * 4 + 1000
+            obj["status"]["allocatable"] = {clusterapi.CAPACITY_KEY: new_alloc}
+            try:
+                scoped[lcs[0]].update_status(clusterapi.CLUSTERS, obj)
+                break
+            except ConflictError:
+                time.sleep(0.05)
+        want2 = expected(scoped)
+        _until(lambda: leaves(scoped) == want2, timeout,
+               "every leaf equal to solve_host after the capacity change", 0.1)
+        replaced_s = time.perf_counter() - t2
+        _until(settled, timeout, "the scheduler to settle", 0.0)
+        after = [r for r in solved[first:]]
+        keys = st.call(lambda: list(sched._row_keys))
+        ours = {r for r, key in enumerate(keys) if key[0] == lcs[0]}
+        if not after or after[0] is None or set(after[0]) != ours:
+            raise RuntimeError(f"the capacity change's solve took rows {after[:1]}, "
+                               f"want the {len(ours)} rows of {lcs[0]}")
+        stray = sorted({r for rows in after for r in (rows or range(len(keys)))} - ours)
+        if stray:
+            raise RuntimeError(f"rows outside {lcs[0]} re-solved after the change: {stray[:8]}")
+        stats1 = st.call(lambda: dict(sched.solver.stats))
+        return dict(logical=n_logical, physical=n_physical, roots=n_logical * roots,
+                    leaves=n_leaves, spread=spread, posted_s=posted_s,
+                    placed_s=placed_s, downstream_s=downstream_s, ticks=ticks,
+                    empty_ticks=empty_ticks, launches=launches,
+                    fleet_solves=solves[0], fleet_solve_s=solves[1],
+                    scheduler=st.call(lambda: dict(sched.stats)), solver=stats1,
+                    capacity_change=dict(
+                        registration=target, allocatable=new_alloc, replaced_s=replaced_s,
+                        solves=len(after), first_solve_rows=len(after[0]),
+                        rows_solved=stats1["rows_solved"] - rows0,
+                        leaves_changed=sum(want[lc] != want2[lc] for lc in lcs)))
+    finally:
+        _stop_front_door(st, agents)
 
 
 async def _stop_agents(agents) -> None:

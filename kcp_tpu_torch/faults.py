@@ -135,7 +135,7 @@ import random
 import threading
 from dataclasses import dataclass, field
 
-from .utils.locks import make_lock
+from .analysis.sanitize import make_lock
 from .utils.errors import UnavailableError
 from .utils.trace import REGISTRY
 

@@ -7,7 +7,8 @@ the symbols the port calls: the work queue (``wq_*``,
 :class:`kcp_tpu_torch.reconciler.fairqueue.FairWorkQueue`), the durable
 WAL engine (``ws_*``, :class:`WalEngine`, the store's native backend) and
 the slot-vocabulary encoder (``enc_*``, :class:`NativeBucket`, the fast
-path of :class:`kcp_tpu_torch.ops.encode.BucketEncoder`) and the schema
+path of :class:`kcp_tpu_torch.ops.encode.BucketEncoder`, and its hashes,
+:func:`fnv1a_native` and :func:`hash_value_native`) and the schema
 tokenizer (``enc_tokenize_schemas`` and the ``kcptok`` extension, the two
 native tiers of :func:`kcp_tpu_torch.ops.schemahash.tokenize_schemas`).
 If the build or the load fails, :func:`load` returns ``None`` and every
@@ -22,7 +23,7 @@ import os
 import subprocess
 from typing import Iterator
 
-from .utils.locks import make_lock
+from .analysis.sanitize import make_lock
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "native")
 _LIB_NAME = "libkcpnative.so"
@@ -355,6 +356,18 @@ class NativeBucket:
                 self._lib.enc_bucket_free(self._h)
         except Exception:
             pass
+
+
+def hash_value_native(json_bytes: bytes) -> int:
+    lib = load()
+    assert lib is not None
+    return lib.enc_hash_value(json_bytes, len(json_bytes))
+
+
+def fnv1a_native(data: bytes, seed: int = 0x811C9DC5) -> int:
+    lib = load()
+    assert lib is not None
+    return lib.enc_fnv1a(data, len(data), seed)
 
 
 _tok_mod = None

@@ -52,7 +52,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Iterator
 
-from ..utils.locks import make_lock
+from ..analysis.sanitize import make_lock
 from ..utils.trace import REGISTRY
 
 #: the W3C propagation header (lower-cased: the httpd lower-cases keys)

@@ -54,7 +54,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.locks import make_lock
+from ..analysis.sanitize import make_lock
 from .diff import sync_decisions
 from .labelmatch import fanout_match
 

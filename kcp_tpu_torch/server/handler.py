@@ -415,12 +415,15 @@ class RestHandler:
                 seconds = 2.0
             log_dir = req.param("dir") or tempfile.mkdtemp(
                 prefix="kcp-device-trace-")
-            with device_trace(log_dir) as started:
+            # the profiler's start-up and the file's export run off the
+            # loop; the session records the loop's own CPU ops
+            timings: dict = {}
+            async with device_trace(log_dir, timings) as started:
                 await asyncio.sleep(seconds)
             trace = os.path.join(log_dir, TRACE_FILE)
             written = started and os.path.exists(trace)
             body = {"dir": log_dir, "seconds": seconds,
-                    "started": bool(started)}
+                    "started": bool(started), "timings_s": timings}
             if written:
                 body["trace"] = trace
                 body["hint"] = "open the Chrome trace in Perfetto or chrome://tracing"

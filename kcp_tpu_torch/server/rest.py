@@ -24,7 +24,7 @@ import time
 from urllib.parse import quote, urlsplit
 
 from .. import obs
-from ..utils.locks import make_lock
+from ..analysis.sanitize import make_lock
 from ..apis.scheme import GVR, ResourceInfo, Scheme, default_scheme
 from ..faults import link_fault, maybe_fail, should_drop
 from ..store.selectors import LabelSelector

@@ -115,21 +115,17 @@ class Config:
     # this many records of lag (None -> KCP_REPL_LAG_MAX, default 0 =
     # serve any staleness RV-honestly)
     fleet: bool = False  # fleet placement control plane (KCP_FLEET=1 env
-    # fallback): the reference's FleetScheduler, whose solver the port
-    # does not have yet; both raise NotImplementedError
+    # fallback): a FleetScheduler takes over the DeploymentSplitter's
+    # placement decision with the capacity/locality-aware batched
+    # bin-pack (kcp_tpu_torch/fleet/), solved on the controllers' device.
+    # Spread + locality weight come from KCP_FLEET_SPREAD /
+    # KCP_FLEET_LOCALITY_WEIGHT.
 
     def __post_init__(self) -> None:
         if self.role == "router":
             raise NotImplementedError(
                 "role='router' needs sharding/ (the shard ring and router), "
                 "not ported yet (ROADMAP A8)")
-        if self.fleet:
-            raise NotImplementedError(_NO_FLEET)
-
-
-_NO_FLEET = ("fleet placement (fleet=True or KCP_FLEET=1) needs "
-             "fleet/solver.py and fleet/scheduler.py, not ported yet "
-             "(ROADMAP A4)")
 
 
 class Server:
@@ -159,8 +155,6 @@ class Server:
         self.mesh = None
         self.device = None
         if self.install_controllers:
-            if os.environ.get("KCP_FLEET") == "1":
-                raise NotImplementedError(_NO_FLEET)
             if self.config.mesh:
                 self.mesh = mesh_on(self.config.mesh, self.config.device)
             self.device = resolve_device(self.config.device, self.mesh)
@@ -398,6 +392,12 @@ class Server:
             # (server.go:325-356)
             NamespaceLifecycleController(self.client),
         ]
+        if self.config.fleet or os.environ.get("KCP_FLEET") == "1":
+            from ..fleet.scheduler import FleetScheduler
+
+            # must start AFTER the splitter (it shares its informers);
+            # the controllers list starts in order
+            self._controllers.append(FleetScheduler(splitter, mesh=mesh))
         admission = getattr(self.handler, "admission", None)
         if admission is not None and admission.ledger is not None:
             # quota usage-recount reconciler (admission/quota.py):

@@ -27,7 +27,7 @@ import re
 import threading
 import time
 
-from .locks import make_lock
+from ..analysis.sanitize import make_lock
 
 from .errors import UnavailableError
 from .trace import REGISTRY

@@ -30,7 +30,7 @@ import time
 from bisect import bisect_left
 from dataclasses import dataclass, field
 
-from .locks import make_lock
+from ..analysis.sanitize import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -208,32 +208,81 @@ def span(name: str, registry: Registry = REGISTRY):
 
 TRACE_FILE = "trace.json"
 
+_trace_warm_lock = make_lock("trace.warm")
+_trace_warmed = False
 
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """``torch.profiler`` trace around a block, written as a Chrome trace
-    to ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing).
 
-    Records CUDA activity when a card is present, CPU activity always.
-    Yields whether the profiler started; when it cannot (another
-    profiler session is active in this process, or the profiler is
-    unavailable) the block runs untraced and nothing is written.
-    """
+def _trace_activities() -> list:
     import torch
-    from torch.autograd import profiler as autograd_profiler
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    return activities
+
+
+def warm_device_trace() -> None:
+    """Start and stop one empty profiler session, once per process.
+
+    A process's first profiler session initialises the profiler's tracing
+    libraries, which takes seconds with CUDA. :func:`device_trace` calls
+    this from a worker thread, which keeps that start-up off the serving
+    loop, so the session it then starts on the loop starts in
+    milliseconds. That session itself stays on the loop's thread: the
+    profiler records the CPU ops of the thread that starts it, and
+    stopping it from another thread fails."""
+    global _trace_warmed
+    from torch.autograd import profiler as autograd_profiler
+    from torch.profiler import profile
+
+    with _trace_warm_lock:
+        if _trace_warmed or autograd_profiler._is_profiler_enabled:
+            return
+        try:
+            prof = profile(activities=_trace_activities())
+            prof.start()
+            prof.stop()
+        except Exception as e:  # noqa: BLE001 — device_trace reports its own
+            log.warning("device trace warm-up failed: %s", e)
+        _trace_warmed = True
+
+
+@contextlib.asynccontextmanager
+async def device_trace(log_dir: str, timings: dict):
+    """``torch.profiler`` trace around a block of the running loop, written
+    as a Chrome trace to ``log_dir/trace.json`` (open it in Perfetto or
+    chrome://tracing).
+
+    Records CUDA activity when a card is present, CPU activity always,
+    of the loop's thread. The profiler's one-time start-up
+    (:func:`warm_device_trace`) and the file's export run in worker
+    threads; the session starts and stops on the loop, whose CPU ops it
+    records. ``timings`` receives the seconds of each step
+    (``warm_s``, ``start_s``, ``stop_s``, ``export_s``). Yields whether
+    the profiler started; when it cannot (another profiler session is
+    active in this process, or the profiler is unavailable) the block
+    runs untraced and nothing is written.
+    """
+    import asyncio
+
+    from torch.autograd import profiler as autograd_profiler
+    from torch.profiler import profile
+
+    t = timings
+    t0 = time.perf_counter()
+    await asyncio.to_thread(warm_device_trace)
+    t["warm_s"] = time.perf_counter() - t0
     prof = None
     if autograd_profiler._is_profiler_enabled:
         # a second session would take over (and end) the running one
         log.warning("device trace did not start: another profiler session is active")
     else:
         try:
-            prof = profile(activities=activities)
+            t0 = time.perf_counter()
+            prof = profile(activities=_trace_activities())
             prof.start()
+            t["start_s"] = time.perf_counter() - t0
         except Exception as e:  # noqa: BLE001 — report, run untraced
             log.warning("device trace did not start: %s", e)
             prof = None
@@ -242,9 +291,14 @@ def device_trace(log_dir: str):
     finally:
         if prof is not None:
             try:
+                t0 = time.perf_counter()
                 prof.stop()
+                t["stop_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
                 os.makedirs(log_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+                await asyncio.to_thread(prof.export_chrome_trace,
+                                        os.path.join(log_dir, TRACE_FILE))
+                t["export_s"] = time.perf_counter() - t0
             except Exception as e:  # noqa: BLE001 — the caller sees no file
                 log.warning("device trace not written: %s", e)
 

@@ -3,7 +3,9 @@ forms, every path of its tile plan), the step on the card against the
 step on the CPU, a short FusedCore loop, the schema hash on the card
 against the CPU, the controller plane on the card (the kubecon demo
 scenario and a small fleet), and ``kcp start``'s server on the card with
-the quota ledger fed by the kernel's per-segment counts.
+the quota ledger fed by the kernel's per-segment counts, and the fleet
+solver on the card against its numpy twin, alone and through ``kcp
+start`` with fleet placement on.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports neither JAX nor the JAX package, so on a machine
@@ -298,3 +300,34 @@ def test_front_door_on_card_feeds_the_ledger_as_on_the_cpu(cuda_device, tmp_path
     assert card["leaves"] == host["leaves"] == 4
     assert card["device_lane"] == host["device_lane"] == {"lc-00": 4}
     assert card["usage_device"] == host["usage_device"] == 4
+
+
+@pytest.mark.parametrize("mesh", [None, "4"])
+def test_fleet_solver_on_card_equals_solve_host(cuda_device, mesh):
+    """The placement benchmark's shape (10,000 workspaces x 8 physical
+    clusters, spread 2, seed 17): the solve on the card byte-equal to the
+    numpy twin, unsharded and over mesh "4" (cuda:0 x4), full and on
+    the 37-row incremental re-solve."""
+    from kcp_tpu_torch.bench import placement_inputs
+    from kcp_tpu_torch.fleet.solver import FleetSolver, solve_host
+    from kcp_tpu_torch.parallel.mesh import mesh_from_spec
+
+    x = placement_inputs(10000, 8, 37)
+    args = [x[k] for k in ("demand", "cand", "alloc", "region", "home")]
+    m = None if mesh is None else mesh_from_spec(mesh, devices=[cuda_device] * 4)
+    solver = FleetSolver(spread=2, mesh=m)
+    assert solver.device.type == "cuda"
+    assert np.array_equal(solver.solve(*args), solve_host(*args, 2))
+    args[1] = x["cand2"]
+    rows = [int(i) for i in x["dirty_rows"]]
+    before = solver.stats["rows_solved"]
+    assert np.array_equal(solver.solve(*args, rows=rows), solve_host(*args, 2))
+    assert solver.stats["rows_solved"] - before == 37
+
+
+def test_fleet_placement_through_kcp_start_on_card(cuda_device):
+    from kcp_tpu_torch import demo
+
+    out = demo.fleet_front_door_load(None, 2, 2, 8, timeout=120.0)
+    assert out["launches"] > 0 and out["leaves"] > 0
+    assert out["capacity_change"]["first_solve_rows"] == 8

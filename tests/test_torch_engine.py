@@ -16,6 +16,7 @@ Every comparison is exact equality.
 """
 
 import asyncio
+import contextlib
 import functools
 import inspect
 import json
@@ -42,6 +43,13 @@ from kcp_tpu_torch.store.selectors import parse_selector as port_parse_selector
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 
+# torch's intra-op pool takes one thread per core in every process; under
+# xdist's workers that oversubscribes the host several times over, and the
+# port's many tiny CPU ops then slow down 15-30x (a mirrored case whose
+# quarantine backoff is pinned at 120 s outlived it and diverged). Every
+# worker collects this module, so each runs the port's ops on one thread.
+torch.set_num_threads(1)
+
 
 # ------------------------------------------------------------ mirroring
 
@@ -66,6 +74,12 @@ def port_module(ref_file: str) -> types.ModuleType:
                       'FusedCore.for_current_loop(device="cpu")')
     # the port's binaries pick their device from KCP_DEVICE
     src = src.replace('JAX_PLATFORMS="cpu"', 'KCP_DEVICE="cpu"')
+    # cores, buckets and meshes built directly in a mirrored file go on
+    # the CPU too (a mesh repeats the CPU device)
+    src = re.sub(r"\bFusedCore\(", 'FusedCore(device="cpu", ', src)
+    src = re.sub(r"\bFusedBucket\((\w+)\)", r'FusedBucket(\1, device="cpu")', src)
+    src = re.sub(r"\bmake_mesh\(n_devices=(\d+)",
+                 r'make_mesh(devices=["cpu"] * \1, n_devices=\1', src)
     mod = types.ModuleType(f"port_{ref_file[:-3]}")
     mod.__file__ = path
     exec(compile(src, f"{path} (against kcp_tpu_torch)", "exec"), mod.__dict__)
@@ -78,24 +92,41 @@ def port_module(ref_file: str) -> types.ModuleType:
     return mod
 
 
-def _cases(ref_file: str, skip=()):
-    """(file, test name, kwargs) for every test function of the file,
-    expanding its parametrize marks."""
-    mod = port_module(ref_file)
-    out = []
-    for name, fn in vars(mod).items():
-        if not name.startswith("test_") or not callable(fn) or name in skip:
+def _grid(fn) -> list[dict]:
+    """The keyword sets of a test function's parametrize marks."""
+    grid = [{}]
+    for mark in getattr(fn, "pytestmark", []):
+        if mark.name != "parametrize":
             continue
-        grid = [{}]
-        for mark in getattr(fn, "pytestmark", []):
-            if mark.name != "parametrize":
-                continue
-            names = [n.strip() for n in mark.args[0].split(",")] \
-                if isinstance(mark.args[0], str) else list(mark.args[0])
-            rows = [v if len(names) > 1 else (v,) for v in mark.args[1]]
-            grid = [dict(g, **dict(zip(names, row))) for g in grid for row in rows]
-        for i, kw in enumerate(grid):
-            out.append(pytest.param(ref_file, name, kw, id=f"{ref_file[5:-3]}::{name}[{i}]"))
+        names = [n.strip() for n in mark.args[0].split(",")] \
+            if isinstance(mark.args[0], str) else list(mark.args[0])
+        rows = [v if len(names) > 1 else (v,) for v in mark.args[1]]
+        grid = [dict(g, **dict(zip(names, row))) for g in grid for row in rows]
+    return grid
+
+
+def _cases(ref_file: str, skip=()):
+    """(file, test name, kwargs) for every test function of the file and
+    every test method of its ``Test*`` classes (named ``Class.method``),
+    expanding their parametrize marks; the file's own ``pytestmark``
+    (e.g. a skip without the native library) rides along."""
+    mod = port_module(ref_file)
+    marks = getattr(mod, "pytestmark", [])
+    marks = marks if isinstance(marks, list) else [marks]
+    tests = []
+    for name, obj in vars(mod).items():
+        if name.startswith("test_") and callable(obj):
+            tests.append((name, obj))
+        elif name.startswith("Test") and isinstance(obj, type):
+            tests += [(f"{name}.{m}", fn) for m, fn in vars(obj).items()
+                      if m.startswith("test_") and callable(fn)]
+    out = []
+    for name, fn in tests:
+        if name in skip:
+            continue
+        for i, kw in enumerate(_grid(fn)):
+            out.append(pytest.param(ref_file, name, kw, marks=marks,
+                                    id=f"{ref_file[5:-3]}::{name}[{i}]"))
     return out
 
 
@@ -109,16 +140,37 @@ MIRRORED = (
 )
 
 
-def run_mirrored(ref_file: str, name: str, kwargs: dict, request) -> None:
-    """Call a mirrored case, its other arguments taken from pytest's
-    fixtures (a fixture the reference file defines must be importable
-    from the calling test module)."""
-    fn = getattr(port_module(ref_file), name)
+def _mirrored_callable(mod: types.ModuleType, name: str):
+    if "." in name:
+        cls, meth = name.split(".")
+        return getattr(getattr(mod, cls)(), meth)
+    return getattr(mod, name)
+
+
+def _call_with_fixtures(fn, kwargs: dict, request):
     args = dict(kwargs)
     for param in inspect.signature(fn).parameters:
         if param not in args:
             args[param] = request.getfixturevalue(param)
-    fn(**args)
+    return fn(**args)
+
+
+def run_mirrored(ref_file: str, name: str, kwargs: dict, request) -> None:
+    """Call a mirrored case, its other arguments taken from pytest's
+    fixtures (a fixture the reference file defines must be importable
+    from the calling test module). The file's autouse fixtures that the
+    calling module does not provide wrap the call, as they wrap it in
+    the reference."""
+    mod = port_module(ref_file)
+    with contextlib.ExitStack() as stack:
+        for fname, fix in vars(mod).items():
+            marker = getattr(fix, "_fixture_function_marker", None)
+            if marker is None or not marker.autouse or fname in request.fixturenames:
+                continue
+            got = _call_with_fixtures(fix._get_wrapped_function(), {}, request)
+            if inspect.isgenerator(got):
+                stack.enter_context(contextlib.contextmanager(lambda g=got: g)())
+        _call_with_fixtures(_mirrored_callable(mod, name), kwargs, request)
 
 
 @pytest.mark.parametrize("ref_file,name,kwargs", MIRRORED)

@@ -7,7 +7,9 @@ loop through its FusedCore, serves a few objects through
 ``start_syncer`` on a 2 x ``cpu`` mesh, runs the kubecon demo scenario
 through the controller plane, and starts ``kcp start``'s ``Server`` with
 its controllers on the CPU, registers one fake cluster and syncs one
-Deployment over REST and takes a ``/debug/trace``, all in a fresh interpreter (``-I``: no user
+Deployment over REST and takes a ``/debug/trace``, solves a placement with
+``fleet/solver.py`` and places roots through ``kcp start`` with the fleet
+scheduler (``fleet/scheduler.py``), all in a fresh interpreter (``-I``: no user
 site, no PYTHONPATH hooks) and inspects its ``sys.modules``. A static scan of the port's sources and of
 ``chip_smoke.py`` backs it up for code the loop does not reach.
 """
@@ -78,6 +80,15 @@ kubecon = asyncio.run(demo.run("kubecon", device="cpu"))
 import tempfile
 
 front = demo.front_door_load("cpu", 1, 1, 1, timeout=60.0, trace_dir=tempfile.mkdtemp())
+
+# fleet placement: the solver alone and the scheduler through kcp start
+import numpy as np
+from kcp_tpu_torch.fleet.solver import FleetSolver
+
+placed = FleetSolver(spread=1, device="cpu").solve(
+    np.array([3], np.int32), np.ones((1, 2), bool), np.array([5, 9], np.int32),
+    np.zeros(2, np.int32), np.zeros(1, np.int32)).tolist()
+fleet = demo.fleet_front_door_load("cpu", 1, 2, 2, timeout=60.0)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "kcp_tpu"))
 print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
@@ -86,6 +97,7 @@ print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
                   "synced": synced, "sharded": sharded,
                   "kubecon": kubecon, "golden": demo.golden(),
                   "front": [front["leaves"], front["device_lane"], front["trace"]["started"]],
+                  "placed": placed, "fleet": fleet["capacity_change"]["first_solve_rows"],
                   "loaded": loaded}))
 """
 
@@ -103,6 +115,7 @@ def test_port_closed_loop_loads_no_jax_and_no_reference_module():
     assert res["kubecon"][0] == "=== demo: kubecon ==="
     assert res["kubecon"] == res["golden"][-len(res["kubecon"]):]
     assert res["front"] == [1, {"lc-00": 1}, True]
+    assert res["placed"] == [[0, 3]] and res["fleet"] == 2
     # the controller's queue is the native fair queue when the repo's
     # library builds, else the plain one: either is the port's own class
     assert res["queue"] in ("FairWorkQueue", "WorkQueue")

@@ -25,8 +25,7 @@ against the JAX package's, on the CPU.
   package's ``Server`` with controllers on the CPU (the JAX one on JAX
   CPU with its fused backend, the port with ``device="cpu"``): equal
   device counts per key and equal ``quota_usage_device``.
-- What the port refuses: ``role="router"``, ``fleet=True`` and
-  ``KCP_FLEET=1`` with controllers, ring-verified shard names,
+- What the port refuses: ``role="router"``, ring-verified shard names,
   ``device=None`` without a card when controllers are installed;
   ``/debug/trace`` answers 503 when its profiler cannot start.
 """
@@ -76,8 +75,9 @@ def test_mirrored_server_files_run_against_the_port():
     assert bound.func is Config and bound.keywords == {"device": "cpu"}
     names = {(p.values[0], p.values[1]) for p in MIRRORED}
     # 16 + 25 + 4 + 1 + 4 + 1 + 11 + 6 + 11 + 12 + 8 + 9 + 15 + 2 test
-    # functions, less the 3 router cases
-    assert len(names) == 122
+    # functions, less the 3 router cases, and the 15 test methods of
+    # test_authz.py's, test_printers.py's and test_trace.py's classes
+    assert len(names) == 137
 
 
 # ------------------------------------------------------------ REST parity
@@ -300,15 +300,30 @@ def test_ledger_device_lane_equals_the_jax_servers():
 
 
 def test_router_and_fleet_name_their_roadmap_entry(monkeypatch):
+    """The router still refuses with its roadmap entry; fleet placement
+    (``Config(fleet=True)`` or ``KCP_FLEET=1``) serves, with a
+    ``FleetScheduler`` after the splitter among the controllers."""
+    from kcp_tpu_torch.fleet.scheduler import FleetScheduler
+    from kcp_tpu_torch.reconcilers.deployment import DeploymentSplitter
     from kcp_tpu_torch.server import Config, Server
+    from kcp_tpu_torch.server.threaded import ServerThread
 
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         Config(role="router")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        Config(fleet=True)
+
+    def controllers(config):
+        st = ServerThread(config).start()
+        try:
+            return [type(c) for c in st.server._controllers]
+        finally:
+            st.stop()
+
+    kinds = controllers(Config(durable=False, tls=False, device="cpu", fleet=True))
+    assert FleetScheduler in kinds
+    assert kinds.index(FleetScheduler) > kinds.index(DeploymentSplitter)
+    assert FleetScheduler not in controllers(Config(durable=False, tls=False, device="cpu"))
     monkeypatch.setenv("KCP_FLEET", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        Server(Config(durable=False, tls=False, device="cpu"))
+    assert FleetScheduler in controllers(Config(durable=False, tls=False, device="cpu"))
     Server(Config(durable=False, tls=False, install_controllers=False))  # serve-only
     monkeypatch.delenv("KCP_FLEET")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
