@@ -68,7 +68,7 @@ Phases, each fatal on failure:
    ``Server`` in a ``ServerThread`` (in memory, TLS off, controllers on
    the card, 0.2 s polls), driven over HTTP by a
    ``MultiClusterRestClient`` (``kcp_tpu_torch.demo.front_door_load``):
-   the 64 registrations, 64 root Deployments per logical cluster (cut
+   the 64 registrations, 32 root Deployments per logical cluster (cut
    from phase 7's 256 for the time limit), every leaf equal to the CPU
    split, every root's readyReplicas read back over REST,
    ``decide_and_match`` launched once per fleet tick with synced rows,
@@ -84,6 +84,12 @@ Phases, each fatal on failure:
    through a wrapper that adds nothing to the binary, reports that it
    loaded no ``jax``/``jaxlib``/``kcp_tpu`` module; a ``kcp start`` child
    with ``KCP_FLEET=1`` serves with its fleet scheduler up the same way;
+   two ``--role shard`` children (``--shard-name s<i> --ring-names
+   s0,s1 --ring-epoch 1``, controllers on the card) behind a ``--role
+   router`` child: a create through the router answers 201, a direct
+   create stamped ``X-Kcp-Ring-Epoch: 1`` answers 201 on the owner and
+   410 with the epoch header on the other shard, and a wildcard list
+   through the router lists both objects;
 9a. fleet placement, the solver — ``FleetSolver`` on the card at the
    placement benchmark's shape (BASELINE configs[2],
    ``kcp_tpu_torch.bench.placement_bench``: 10,000 workspaces x 8
@@ -102,9 +108,24 @@ Phases, each fatal on failure:
    every leaf equal to ``solve_host`` on what REST holds, a
    ``decide_and_match`` launch per fleet tick with rows; then one
    registration's allocatable changes over REST and only its logical
-   cluster's rows re-solve, the leaves again equal to ``solve_host``.
+   cluster's rows re-solve, the leaves again equal to ``solve_host``;
+10. the sharded front door — phase 8's layout over 4 durable shard
+   servers (a WAL each; one loop, one ``FusedCore`` and controllers on
+   the card each) behind a ``role="router"`` server
+   (``kcp_tpu_torch.demo.sharded_front_door_load``): registrations
+   routed through the router, a merged wildcard watch opened before the
+   first root, 16 roots per logical cluster POSTed direct by a
+   ``SmartRestClient`` (even logical clusters) or routed (odd ones);
+   every leaf equal to the CPU split, each tenant's objects on its HRW
+   shard only, every root aggregated through the router, the merged
+   watch lossless and resumable from a mid-stream vector RV, the
+   router's wildcard list byte-equal to the shards' own, a
+   ``decide_and_match`` launch per fleet tick with rows on every
+   shard's core; then the window's readings (direct and routed create
+   latency, ``router_proxy_seconds``, each shard's tenants, ticks,
+   launches and leaves, process CPU).
 
-Phases 7 to 9b run right after 5b, before the profiler of 5c, so that
+Phases 7 to 10 run right after 5b, before the profiler of 5c, so that
 their host-clock readings, like those of 5 and 5b, follow no profiler
 session (phase 8's own ``/debug/trace`` calls come after its readings;
 each is timed against the serving loop: the request's wall time, the
@@ -144,14 +165,21 @@ ENGINE_NAMESPACES = 64
 # physical clusters per logical cluster, root Deployments per logical cluster
 PLANE_LOGICAL, PLANE_PHYSICAL, PLANE_ROOTS = 16, 4, 256
 # phase 8: phase 7's layout, reached through kcp start's server over REST;
-# root Deployments per logical cluster cut from 256 to 64 for the run's
-# time limit (at 256 the POSTs alone took 103 s on the H100)
-FRONT_ROOTS = 64
+# root Deployments per logical cluster cut from 256 to 32 for the run's
+# time limit (at 256 the POSTs alone took 103 s on the H100; 64 took 18 s,
+# and phase 10 repeats this layout over four shards)
+FRONT_ROOTS = 32
 # phase 9a: the placement benchmark's shape (BASELINE configs[2],
 # bench.py --placement): workspaces x physical clusters, spread, timed solves
 PLACE_W, PLACE_P, PLACE_SPREAD, PLACE_ITERS = 10000, 8, 2, 7
 # phase 9b: phase 8's layout with fleet placement on; roots per logical cluster
 FLEET_ROOTS = 64
+# phase 10: phase 8's layout over a sharded control plane: shards (the
+# reference's widest fleet in every sharded lane: --sharded runs 1/2/4,
+# --elastic 2 -> 4) and roots per logical cluster, cut from 64 for the
+# run's time limit (at 64 its POSTs took 56.7-90.8 s on the H100 machine
+# and the script 225.6-304.4 s)
+SHARDS, SHARDED_ROOTS = 4, 16
 # phase 8b: the modules a child binary must not have loaded as it exits
 FORBIDDEN = ("jax", "jaxlib", "kcp_tpu")
 # phase 8b: runs a binary unchanged and, as it exits, prints the JAX and
@@ -813,22 +841,46 @@ def _first_line(proc, what: str, timeout: float = 120.0) -> str:
     return line.strip().rsplit(" ", 1)[-1]
 
 
-def _http(method: str, url: str, body: dict | None = None):
+def _request(method: str, url: str, body: dict | None = None,
+             headers: dict | None = None):
+    """One HTTP round trip: (status, headers with lower-case names, the
+    body parsed as JSON when it is an object, else its text)."""
+    import urllib.error
     import urllib.request
 
-    req = urllib.request.Request(url, method=method,
+    req = urllib.request.Request(url, method=method, headers=headers or {},
                                  data=json.dumps(body).encode() if body else None)
-    with urllib.request.urlopen(req, timeout=30) as resp:
+    try:
+        resp = urllib.request.urlopen(req, timeout=30)
+    except urllib.error.HTTPError as err:
+        resp = err
+    with resp:
         raw = resp.read()
-        return resp.status, (json.loads(raw) if raw[:1] == b"{" else raw.decode())
+        return (resp.status, {k.lower(): v for k, v in resp.headers.items()},
+                json.loads(raw) if raw[:1] == b"{" else raw.decode())
+
+
+def _http(method: str, url: str, body: dict | None = None):
+    """(status, body) of a round trip that must succeed."""
+    import urllib.error
+
+    status, _headers, doc = _request(method, url, body)
+    if status >= 400:
+        raise urllib.error.HTTPError(url, status, str(doc), None, None)
+    return status, doc
 
 
 def binaries_phase(card: str) -> None:
     """8b. The binaries in child processes on the card, without --device:
     ``kcp start`` with its controllers serves a create, a get, a wildcard
     list and /readyz and exits 0 on SIGTERM; kcp + physical kcp + a
-    ``--backend fused`` syncer downsync a labelled object. No child loads
-    JAX or the JAX package (each reports its modules as it exits)."""
+    ``--backend fused`` syncer downsync a labelled object; two ring-named
+    shards with controllers behind a router child serve routed and
+    ring-verified direct creates and a merged wildcard list. No child
+    loads JAX or the JAX package (each reports its modules as it
+    exits)."""
+    from kcp_tpu_torch.sharding.ring import owner_name
+
     t0 = time.perf_counter()
     procs = {}
     try:
@@ -841,6 +893,11 @@ def binaries_phase(card: str) -> None:
         for name in ("kcp", "physical kcp"):
             procs[name] = _child("kcp_tpu_torch.cli.kcp", "start", "--in-memory", "--no-tls",
                                  "--no-install-controllers", "--listen-port", "0")
+        for i in range(2):
+            procs[f"shard s{i}"] = _child(
+                "kcp_tpu_torch.cli.kcp", "start", "--in-memory", "--no-tls", "--listen-port",
+                "0", "--poll-interval", "0.2", "--role", "shard", "--shard-name", f"s{i}",
+                "--ring-names", "s0,s1", "--ring-epoch", "1")
         kcp_url = _first_line(procs["kcp"], "kcp")
         phys_url = _first_line(procs["physical kcp"], "physical kcp")
         procs["syncer"] = _child(
@@ -866,6 +923,27 @@ def binaries_phase(card: str) -> None:
               if line.startswith("fleet_scheduler_up ")]
         if status != 201 or ready != "ok" or up != ["fleet_scheduler_up 1"]:
             fail(f"kcp start (KCP_FLEET=1): create {status}, readyz {ready}, {up}")
+        shard_urls = [_first_line(procs[f"shard s{i}"], f"shard s{i}") for i in range(2)]
+        procs["router"] = _child(
+            "kcp_tpu_torch.cli.kcp", "start", "--in-memory", "--no-tls", "--listen-port", "0",
+            "--role", "router", "--shards", f"s0={shard_urls[0]},s1={shard_urls[1]}")
+        router_url = _first_line(procs["router"], "router")
+        owner = int(owner_name(["s0", "s1"], "t")[1:])
+        routed = _request("POST", f"{router_url}/clusters/t{path}",
+                          {"metadata": {"name": "routed"}, "data": {"a": "1"}})[0]
+        stamp = {"X-Kcp-Ring-Epoch": "1", "Content-Type": "application/json"}
+        direct = _request("POST", f"{shard_urls[owner]}/clusters/t{path}",
+                          {"metadata": {"name": "direct"}, "data": {"a": "2"}}, stamp)[0]
+        stale, stale_headers, stale_doc = _request(
+            "POST", f"{shard_urls[1 - owner]}/clusters/t{path}",
+            {"metadata": {"name": "stale"}, "data": {"a": "3"}}, stamp)
+        merged = sorted(o["metadata"]["name"]
+                        for o in _http("GET", f"{router_url}/clusters/*{path}")[1]["items"])
+        if (routed, direct, stale, stale_headers.get("x-kcp-ring-epoch"), merged) != (
+                201, 201, 410, "1", ["direct", "routed"]):
+            fail(f"router + shards: routed create {routed}, direct create on the owner "
+                 f"{direct}, on the other shard {stale} {stale_headers} {stale_doc}, "
+                 f"wildcard list {merged}")
         _http("POST", f"{kcp_url}/clusters/tenant{path}",
               {"metadata": {"name": "synced-cm", "labels": {"kcp.dev/cluster": "east"}},
                "data": {"from": "kcp"}})
@@ -904,9 +982,12 @@ def binaries_phase(card: str) -> None:
           f"{served_s:.2f} s after launch; kcp + physical kcp + syncer --backend fused "
           f"downsynced the object {synced_s:.2f} s after launch (the syncer's child "
           f"launched decide_and_match {exits['syncer'][1]['launches']} times); kcp start "
-          f"with KCP_FLEET=1 served a create and /readyz with fleet_scheduler_up 1; all "
-          f"{len(exits)} children exited 0 on SIGTERM with no jax/jaxlib/kcp_tpu module "
-          f"loaded [{card}]")
+          f"with KCP_FLEET=1 served a create and /readyz with fleet_scheduler_up 1; a "
+          f"router child over two ring-named shard children with controllers: routed "
+          f"create 201, ring-stamped direct create 201 on the owner s{owner} and 410 with "
+          f"X-Kcp-Ring-Epoch 1 on s{1 - owner}, wildcard list through the router "
+          f"{merged}; all {len(exits)} children exited 0 on SIGTERM with no "
+          f"jax/jaxlib/kcp_tpu module loaded [{card}]")
 
 
 def solver_phase(torch, dev, card: str):
@@ -1001,6 +1082,59 @@ def fleet_phase(torch, card: str) -> int:
           f"{cc['leaves_changed']} logical cluster's leaves moved; {cc['solves']} solves "
           f"after it, the first of {cc['first_solve_rows']} rows (that logical cluster's "
           f"roots), every one within it; rows_solved rose {cc['rows_solved']} [{card}]")
+    return launches
+
+
+def sharded_phase(torch, card: str) -> int:
+    """10. Phase 8's layout over a sharded control plane:
+    ``kcp_tpu_torch.demo.sharded_front_door_load`` on the card checks the
+    leaves, each tenant's shard, the aggregated roots, the merged watch
+    and its resume, the router's wildcard list and every shard core's
+    launches, and raises on the first check that fails. Returns the
+    phase's kernel launches."""
+    from kcp_tpu_torch import demo
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match
+
+    decide_and_match.launches = 0
+    try:
+        out = demo.sharded_front_door_load(None, PLANE_LOGICAL, PLANE_PHYSICAL, SHARDED_ROOTS,
+                                           SHARDS, seed=10)
+    except RuntimeError as err:
+        fail(f"sharded front door: {err}")
+    torch.cuda.synchronize()
+    launches = decide_and_match.launches
+    window = out["aggregated_s"]
+    lat = out["create_ms"]
+    proxy_n, proxy_p50, proxy_p99 = out["router_proxy"]
+    print(f"sharded front door: {out['shards']} durable shards (a WAL, a loop, a FusedCore "
+          f"and controllers on the card each) behind a router; {out['physical']} fake "
+          f"physical clusters registered through the router by {out['logical']} logical "
+          f"clusters, every import Compatible+Available and cluster Ready "
+          f"{out['ready_s']:.2f} s after the first registration; {out['roots']} roots "
+          f"POSTed in {out['posted_s']:.2f} s -> {out['leaves']} leaves; first root POST "
+          f"-> last leaf downstream {out['leaves_s']:.2f} s, -> last root aggregated "
+          f"(through the router) {window:.2f} s; leaves equal the CPU split, each tenant's "
+          f"objects on its HRW shard only [{card}]")
+    print(f"sharded front door: creates direct (SmartRestClient) p50 "
+          f"{lat['direct'][1]:.3f} ms p99 {lat['direct'][2]:.3f} ms over {lat['direct'][0]}, "
+          f"routed p50 {lat['routed'][1]:.3f} ms p99 {lat['routed'][2]:.3f} ms over "
+          f"{lat['routed'][0]} (client side); smart_client_direct_total +"
+          f"{out['smart_direct']:.0f}, fallbacks {out['smart_fallback']:.0f}; "
+          f"router_proxy_seconds over the POSTs: {proxy_n} relays, p50 <= {proxy_p50} s, "
+          f"p99 <= {proxy_p99} s (bucket edges); router_scatter_fanout over the phase "
+          f"{out['router_fanout'][0]} scatters, p50 <= {out['router_fanout'][1]} shards; "
+          f"process CPU {out['cpu_s']:.3f} s = {out['cpu_s'] / window * 100:.1f}% of the "
+          f"window [{card}]")
+    for sh in out["per_shard"]:
+        print(f"sharded front door: shard {sh['shard']}: {len(sh['logical'])} logical "
+              f"clusters ({', '.join(sh['logical'])}), {sh['ticks']} fleet ticks "
+              f"({sh['empty_ticks']} without rows), decide_and_match launches "
+              f"{sh['launches']}, {sh['leaves']} leaves [{card}]")
+    print(f"sharded front door: merged watch saw {out['watch_events']} events, each root's "
+          f"ADDED once; the watch resumed from the vector RV of the event seen halfway "
+          f"yielded the {out['resumed_events']} after it, shard by shard; the router's "
+          f"wildcard list equals the shards' own byte for byte; decide_and_match launches "
+          f"{launches} in the phase [{card}]")
     return launches
 
 
@@ -1111,6 +1245,10 @@ def main() -> None:
     solve = solver_phase(torch, dev, card)
     fleet_launches = fleet_phase(torch, card)
 
+    # ---- 10. the sharded front door: four shards' controllers on the card
+    #           behind the router (host clock, before the profiler too)
+    sharded_launches = sharded_phase(torch, card)
+
     # ---- 3, 3b: the kernels' device times; 4, 4b: no index_add_ in either
     #          step (profiled, so after the main path's readings)
     device_times(timed, card)
@@ -1146,7 +1284,7 @@ def main() -> None:
     record.update(name="decide_and_match", route="cuda",
                   source="kcp_tpu_torch/csrc/decide_match.cu",
                   replaces="kcp_tpu/ops/pallas_kernels.py:129",
-                  launches=launches + front_launches + fleet_launches,
+                  launches=launches + front_launches + fleet_launches + sharded_launches,
                   library_ms=None)
     record_sharded.update(name="decide_and_match_sharded", route="cuda",
                           source="kcp_tpu_torch/csrc/decide_match.cu",

@@ -69,8 +69,7 @@ def build_parser():
                             "gather frontend — no storage, no controllers; "
                             "single-cluster requests proxy to the owning "
                             "shard, wildcard list/watch merge across all "
-                            "shards (not in this package yet: it "
-                            "raises, see ROADMAP A8). "
+                            "shards (kcp_tpu_torch/sharding/). "
                             "replica: a read-only follower replaying the "
                             "--primary server's WAL feed, serving GET/LIST/"
                             "WATCH RV-honestly from its own store. "
@@ -87,9 +86,10 @@ def build_parser():
     start.add_argument("--shard-name", default="",
                        help="shard role: this server's stable name in the "
                             "ring (env KCP_SHARD_NAME). With --ring-names "
-                            "set the reference verifies direct smart-client "
-                            "requests against the ring; the port refuses "
-                            "the pair until sharding/ is ported (ROADMAP A8)")
+                            "set, direct smart-client requests (the "
+                            "X-Kcp-Ring-Epoch stamp) are verified against "
+                            "HRW ownership — a stale-ring client gets a "
+                            "typed 410 instead of the wrong shard's answer")
     start.add_argument("--ring-names", default="",
                        help="shard role: comma-separated names of every "
                             "shard in the ring (env KCP_RING_NAMES); names "
@@ -229,8 +229,7 @@ def config_from_args(args) -> Config:
 async def serve(config: Config) -> None:
     try:
         server = Server(config)
-    except (RuntimeError, NotImplementedError) as e:  # no card for the
-        # controllers' device work, or KCP_FLEET=1
+    except RuntimeError as e:  # no card for the controllers' device work
         raise SystemExit(f"kcp start: {e}") from None
 
     async def announce(s: Server) -> None:
@@ -295,17 +294,16 @@ def main(argv: list[str] | None = None) -> int:
         format="%(asctime)s %(levelname).1s %(name)s: %(message)s")
     if args.command == "snapshot":
         return snapshot_cmd(args)
-    try:  # a role or mode not ported yet names its ROADMAP entry
-        if args.distributed:
-            from ..parallel.distributed import init_distributed
+    if args.distributed:
+        from ..parallel.distributed import init_distributed
 
+        try:  # a world of more than one process names its ROADMAP entry
             init_distributed(coordinator=args.coordinator or None,
                              num_processes=args.num_processes,
                              process_id=args.process_id)
-        config = config_from_args(args)
-    except NotImplementedError as e:
-        raise SystemExit(f"kcp start: {e}") from None
-    asyncio.run(serve(config))
+        except NotImplementedError as e:
+            raise SystemExit(f"kcp start: {e}") from None
+    asyncio.run(serve(config_from_args(args)))
     return 0
 
 

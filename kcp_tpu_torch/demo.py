@@ -30,9 +30,12 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import math
 import os
 import sys
+import threading
+from collections import deque
 
 import torch
 
@@ -40,7 +43,7 @@ from .apis import apiresource as ar
 from .apis import cluster as clusterapi
 from .apis import conditions as cond
 from .apis import crd as crdapi
-from .client import MultiClusterClient
+from .client import Client, MultiClusterClient
 from .parallel.mesh import mesh_from_spec
 from .physical import FakeClusterAgent, PhysicalRegistry
 from .reconcilers.apiresource import NegotiationController
@@ -841,6 +844,505 @@ def fleet_front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
                         leaves_changed=sum(want[lc] != want2[lc] for lc in lcs)))
     finally:
         _stop_front_door(st, agents)
+
+
+class _OnLoop(Client):
+    """A client of a store that lives on another server's loop: every
+    call runs on that loop's thread, and a watch's events are forwarded
+    to the caller's loop. A store is not safe across threads; the fake
+    physical clusters of a sharded fleet are each pushed to by every
+    shard's loop, so each stays on a loop of its own, reached the way a
+    physical cluster in another process is, without the wire."""
+
+    def __init__(self, owner, cluster: str = "default"):
+        super().__init__(owner.server.store, cluster, owner.server.scheme)
+        self._owner = owner
+
+    def _run(self, fn, *args):
+        if threading.get_ident() == self._owner._thread.ident:
+            return fn(*args)
+        return self._owner.call(fn, *args)
+
+    def scoped(self, cluster: str) -> "Client":
+        return _OnLoop(self._owner, cluster)
+
+    def get(self, *args, **kw):
+        return self._run(lambda: Client.get(self, *args, **kw))
+
+    def list(self, *args, **kw):
+        return self._run(lambda: Client.list(self, *args, **kw))
+
+    def create(self, *args, **kw):
+        return self._run(lambda: Client.create(self, *args, **kw))
+
+    def update(self, *args, **kw):
+        return self._run(lambda: Client.update(self, *args, **kw))
+
+    def update_status(self, *args, **kw):
+        return self._run(lambda: Client.update_status(self, *args, **kw))
+
+    def delete(self, *args, **kw):
+        return self._run(lambda: Client.delete(self, *args, **kw))
+
+    def resources(self):
+        return self._run(lambda: Client.resources(self))
+
+    def openapi_v2(self):
+        return self._run(lambda: Client.openapi_v2(self))
+
+    def watch(self, *args, **kw):
+        if threading.get_ident() == self._owner._thread.ident:
+            return Client.watch(self, *args, **kw)
+        return _ForwardedWatch(self._owner, lambda: Client.watch(self, *args, **kw))
+
+
+class _ForwardedWatch:
+    """A store watch opened and read on its owner's loop, its events
+    handed to the loop that opened this one (the store ``Watch``'s
+    surface that informers use: ``async for`` and ``close``)."""
+
+    def __init__(self, owner, open_watch):
+        self._owner = owner
+        self._caller = asyncio.get_running_loop()
+        self._events: deque = deque()
+        self._wakeup = asyncio.Event()
+        self._closed = False
+        self._real = owner.call(open_watch)  # raises as the store's watch does
+        self.resource = self._real.resource
+
+        async def start():
+            self._pump = asyncio.ensure_future(self._forward())
+
+        owner.submit(start())
+
+    async def _forward(self) -> None:  # on the owner's loop
+        try:
+            while not self._real.closed:
+                batch = await self._real.next_batch(0.2)
+                if batch:
+                    self._caller.call_soon_threadsafe(self._deliver, batch, False)
+        finally:
+            with contextlib.suppress(RuntimeError):  # the caller's loop has closed
+                self._caller.call_soon_threadsafe(self._deliver, [], True)
+
+    def _deliver(self, batch: list, ended: bool) -> None:
+        self._events.extend(batch)
+        self._closed = self._closed or ended
+        self._wakeup.set()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def close(self) -> None:
+        if not self._closed:
+            self._closed = True
+            with contextlib.suppress(RuntimeError):  # the owner's loop has closed
+                self._owner._loop.call_soon_threadsafe(self._real.close)
+            self._wakeup.set()
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self):
+        while True:
+            if self._events:
+                return self._events.popleft()
+            if self._closed:
+                raise StopAsyncIteration
+            self._wakeup.clear()
+            await self._wakeup.wait()
+
+
+def _watch_reader(url: str, path: str, ring):
+    """A merged watch read on a thread of its own: (the thread, its events
+    in arrival order as (shard index, type, cluster, name, rv, is_root),
+    a list that takes a terminal ERROR's Status, a stop event). The
+    thread ends at the stream's end or at the first line after ``stop``
+    is set."""
+    import http.client
+    import json
+    import threading
+    from urllib.parse import urlsplit
+
+    host, port = urlsplit(url).netloc.split(":")
+    events: list = []
+    errors: list = []
+    stop = threading.Event()
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    if resp.status != 200:
+        conn.close()
+        raise RuntimeError(f"merged watch {path}: HTTP {resp.status}")
+
+    def read():
+        try:
+            while not stop.is_set():
+                line = resp.readline()
+                if not line:
+                    return
+                ev = json.loads(line)
+                if ev["type"] == "ERROR":
+                    errors.append(ev["object"])
+                    return
+                if ev["type"] == "BOOKMARK":
+                    continue
+                meta = ev["object"]["metadata"]
+                events.append((ring.owner_index(meta["clusterName"]), ev["type"],
+                               meta["clusterName"], meta["name"],
+                               int(meta["resourceVersion"]), is_root(ev["object"])))
+        finally:
+            conn.close()
+
+    t = threading.Thread(target=read, daemon=True, name="merged-watch")
+    t.start()
+    return t, events, errors, stop
+
+
+def _hist_window(name: str, before: list) -> tuple[int, float, float]:
+    """A histogram's observations since ``before`` (its bucket counts
+    then): their count and p50/p99 as bucket upper edges (seconds)."""
+    from .utils.trace import REGISTRY
+
+    h = REGISTRY.histogram(name)
+    counts = [a - b for a, b in zip(h.counts, before)]
+    n = sum(counts)
+
+    def q(frac):
+        seen = 0
+        for i, c in enumerate(counts):
+            seen += c
+            if n and seen >= frac * n:
+                return h.buckets[i] if i < len(h.buckets) else float("inf")
+        return 0.0
+
+    return n, q(0.5), q(0.99)
+
+
+def sharded_front_door_load(device=None, n_logical: int = 16, n_physical: int = 4,
+                            roots: int = 64, n_shards: int = 4, seed: int = 0,
+                            timeout: float = 300.0) -> dict:
+    """The front door's controller plane spread over a sharded control
+    plane: ``n_shards`` durable shard servers (``ServerThread``s, one loop
+    and hence one ``FusedCore`` each, a WAL each under a temporary root,
+    ``shard_name="s<i>"``, ``ring_names`` every shard, ring epoch 1,
+    controllers on ``device``, TLS off, 0.2 s polls, APIs published
+    automatically) behind a ``role="router"`` server. Every logical
+    cluster's controllers run on the shard HRW names for it.
+
+    The ``n_physical`` fake physical clusters are stores of in-memory
+    servers of their own, each with a ``FakeClusterAgent`` on its loop:
+    one ``PhysicalRegistry`` is shared by every shard, and it resolves a
+    ``loop://pc-<j>`` kubeconfig to a client that runs each call on that
+    server's loop (``_OnLoop``: every shard pushes to every physical
+    cluster, and a store is not safe across threads).
+
+    Driven from this thread through the router: every logical cluster
+    registers every physical cluster as ``<lc>-pc-<j>``; a merged wildcard
+    watch on deployments opens; ``roots`` root Deployments per logical
+    cluster (seeded replicas in 1..100) are POSTed, the even-index logical
+    clusters' direct with a ``SmartRestClient``, the odd ones' routed with
+    a ``RestClient``. Checks, raising RuntimeError on the first that
+    fails: every import Compatible and Available and every cluster Ready
+    (read through the router); ``smart_client_direct_total`` rose by at
+    least the direct POSTs and ``smart_client_fallback_total`` not at
+    all; every leaf downstream equal to the CPU split; each logical
+    cluster's roots and leaves on its HRW shard's store and on no other;
+    every root's readyReplicas (read through the router) equal to its
+    replicas; the merged watch saw each root's ADDED once, and a second
+    watch resumed from the vector RV of the event seen halfway yields
+    exactly the rest of each shard's stream; the router's wildcard list
+    holds each shard's items byte for byte; on each shard's core, on a
+    card, at least one ``decide_and_match`` launch per fleet tick with
+    synced rows and more than none in all; nothing quarantined. Returns
+    the readings of the window from the first root POST (the router's
+    scatter fan-out over the whole phase)."""
+    import json
+    import shutil
+    import tempfile
+    import time
+
+    import numpy as np
+
+    from .apis.cluster import new_cluster
+    from .client.smart import SmartRestClient
+    from .ops.cuda_kernels import decide_and_match
+    from .server import Config, MultiClusterRestClient, RestClient
+    from .server.threaded import ServerThread
+    from .sharding import ShardRing, decode_rvmap, encode_rvmap
+    from .utils.trace import REGISTRY
+
+    dev = resolve_device(device)
+    lcs = [f"lc-{i:02d}" for i in range(n_logical)]
+    pcs = [f"pc-{j}" for j in range(n_physical)]
+    replicas, want = _seeded_roots(seed, n_logical, n_physical, roots)
+    n_leaves = n_logical * roots * n_physical
+    deployments = "/apis/apps/v1/deployments"
+    registry = PhysicalRegistry()
+    registry.register_factory("loop", lambda url: _OnLoop(physical[url[len("loop://"):]]))
+    root_dir = tempfile.mkdtemp(prefix="kcp-sharded-front-door-")
+    physical: dict = {}
+    agents: list = []
+    shards: list = []
+    router = watch = None
+
+    def counter(name: str) -> float:
+        return REGISTRY.counter(name).value
+
+    def items_of(st, cluster: str = "*") -> dict:
+        """A server's wildcard (or one cluster's) deployments, raw bytes
+        per (cluster, name)."""
+        status, _h, body = RestClient(st.address, cluster=cluster).request_raw(
+            "GET", f"/clusters/{cluster}{deployments}")
+        if status != 200:
+            raise RuntimeError(f"{st.address}: list deployments HTTP {status}")
+        doc = json.loads(body)
+        return {(o["metadata"]["clusterName"], o["metadata"]["name"]): json.dumps(o)
+                for o in doc["items"]}
+
+    try:
+        for pc in pcs:
+            st = ServerThread(Config(durable=False, tls=False, install_controllers=False)
+                              ).start(timeout)
+            physical[pc] = st
+
+            async def start_agent(store=st.server.store):
+                agent = FakeClusterAgent(Client(store, "default"))
+                await agent.start()
+                return agent
+
+            agents.append((st, st.submit(start_agent())))
+        names = ",".join(f"s{i}" for i in range(n_shards))
+        for i in range(n_shards):
+            shards.append(ServerThread(Config(
+                durable=True, root_dir=os.path.join(root_dir, f"shard{i}"), tls=False,
+                poll_interval=0.2, import_poll_interval=0.2, auto_publish_apis=True,
+                device=device, shard_name=f"s{i}", ring_names=names, ring_epoch=1),
+                registry=registry).start(timeout))
+        spec = ",".join(f"s{i}={t.address}" for i, t in enumerate(shards))
+        router = ServerThread(Config(role="router", shards=spec, durable=False,
+                                     tls=False)).start(timeout)
+        ring = ShardRing.from_spec(spec)
+        owner = {lc: ring.owner_index(lc) for lc in lcs}
+        owned = [[lc for lc in lcs if owner[lc] == i] for i in range(n_shards)]
+        mc = MultiClusterRestClient(router.address)
+        scoped = {lc: mc.cluster_client(lc) for lc in lcs}
+        quarantined0 = counter("quarantined_rows")
+        fanout0 = list(REGISTRY.histogram("router_scatter_fanout").counts)
+
+        # 1. registrations through the router
+        t0 = time.perf_counter()
+        for lc in lcs:
+            for pc in pcs:
+                scoped[lc].create(clusterapi.CLUSTERS,
+                                  new_cluster(f"{lc}-{pc}", f"loop://{pc}"))
+
+        def syncers(st) -> int:
+            clusters = next(c for c in st.server._controllers
+                            if isinstance(c, ClusterController))
+            return len(clusters.syncers)
+
+        def registered() -> bool:
+            return (all(st.call(syncers, st) == len(owned[i]) * n_physical
+                        for i, st in enumerate(shards))
+                    and all(ar.is_compatible_and_available(scoped[lc].get(
+                        ar.APIRESOURCEIMPORTS, f"{lc}-{pc}.deployments.v1.apps"))
+                        for lc in lcs for pc in pcs)
+                    and all("deployments.apps" in clusterapi.synced_resources(c)
+                            and clusterapi.is_ready(c)
+                            for lc in lcs for c in scoped[lc].list(clusterapi.CLUSTERS)[0]))
+
+        _until(registered, timeout,
+               "every import Compatible+Available, every cluster Ready (through the router)")
+        ready_s = time.perf_counter() - t0
+        cores = []
+        for st in shards:
+            splitter = next(c for c in st.server._controllers
+                            if isinstance(c, DeploymentSplitter))
+            cores.append(splitter.core)
+
+        def core_reading(core):
+            # on the shard's loop: its fleet ticks and the launches made
+            # from its thread
+            import threading
+
+            stats = core._fleet.stats if core._fleet is not None else {}
+            return (stats.get("ticks", 0), stats.get("empty_ticks", 0),
+                    decide_and_match.by_thread.get(threading.get_ident(), 0),
+                    stats.get("quarantined", 0))
+
+        # 2. the merged watch, from the vector RV of a wildcard list
+        start_vector = mc._request("GET", f"/clusters/*{deployments}")[
+            "metadata"]["resourceVersion"]
+        watch = _watch_reader(router.address, f"/clusters/*{deployments}?watch=true"
+                              f"&resourceVersion={start_vector}", ring)
+
+        # 3. the roots: even logical clusters direct, odd ones routed
+        clients = {lc: (SmartRestClient(router.address, cluster=lc) if i % 2 == 0
+                        else RestClient(router.address, cluster=lc))
+                   for i, lc in enumerate(lcs)}
+        for i, lc in enumerate(lcs):
+            if i % 2 == 0 and clients[lc]._ring_snapshot()[0] is None:
+                raise RuntimeError("the smart client found no ring at the router")
+        before = [st.call(core_reading, core) for st, core in zip(shards, cores)]
+        direct0, fallback0 = (counter("smart_client_direct_total"),
+                              counter("smart_client_fallback_total"))
+        proxy0 = list(REGISTRY.histogram("router_proxy_seconds").counts)
+        cpu0 = time.process_time()
+        t1 = time.perf_counter()
+        latencies = {"direct": [], "routed": []}
+        for i, lc in enumerate(lcs):
+            kind = "direct" if i % 2 == 0 else "routed"
+            for k in range(roots):
+                c0 = time.perf_counter()
+                clients[lc].create("deployments.apps", _root(k, int(replicas[i, k])))
+                latencies[kind].append(time.perf_counter() - c0)
+        posted_s = time.perf_counter() - t1
+        proxied = _hist_window("router_proxy_seconds", proxy0)
+        direct = counter("smart_client_direct_total") - direct0
+        fallback = counter("smart_client_fallback_total") - fallback0
+        if direct < len(latencies["direct"]) or fallback:
+            raise RuntimeError(f"smart clients: {direct:.0f} direct requests for "
+                               f"{len(latencies['direct'])} direct POSTs, {fallback:.0f} "
+                               f"fallbacks through the router")
+
+        # 4. every leaf downstream, equal to the CPU split
+        def leaves() -> dict:
+            return {pc: physical[pc].call(lambda st=physical[pc]: {
+                o["metadata"]["name"]: o["spec"]["replicas"]
+                for o in Client(st.server.store, "default").list("deployments.apps")[0]})
+                for pc in pcs}
+
+        _until(lambda: sum(map(len, leaves().values())) == n_leaves, timeout,
+               "every leaf downstream", 0.05)
+        leaves_s = time.perf_counter() - t1
+
+        # 5. every root aggregated, read through the router
+        def aggregated() -> bool:
+            for lc in lcs:
+                items = scoped[lc].list("deployments.apps")[0]
+                got = [o for o in items if is_root(o)]
+                if len(got) != roots or any((o.get("status") or {}).get(
+                        "readyReplicas") != o["spec"]["replicas"] for o in got):
+                    return False
+            return True
+
+        _until(aggregated, timeout, "every root's readyReplicas aggregated through the router",
+               0.05)
+        aggregated_s = time.perf_counter() - t1
+        cpu_s = time.process_time() - cpu0
+        after = [st.call(core_reading, core) for st, core in zip(shards, cores)]
+        _check_leaves(leaves(), lcs, pcs, want, roots)
+        per_lc = roots * (1 + n_physical)  # roots and their leaves in the tenant
+        for i, st in enumerate(shards):
+            by_lc: dict = {}
+            for lc, _name in items_of(st):
+                by_lc[lc] = by_lc.get(lc, 0) + 1
+            if by_lc != {lc: per_lc for lc in owned[i]}:
+                raise RuntimeError(f"shard s{i} holds deployments {by_lc}; HRW gives it "
+                                   f"{owned[i]} with {per_lc} each")
+
+        # 6. the merged watch, and a resume from its midpoint's vector RV
+        tips = [max((int(json.loads(raw)["metadata"]["resourceVersion"])
+                     for raw in items_of(st).values()), default=0) for st in shards]
+
+        def caught_up(reader) -> bool:
+            _t, got, errs, _stop = reader
+            if errs:
+                raise RuntimeError(f"merged watch ended: {errs}")
+            last = [0] * n_shards
+            for e in list(got):
+                last[e[0]] = max(last[e[0]], e[4])
+            return all(a >= b for a, b in zip(last, tips))
+
+        _until(lambda: caught_up(watch), timeout, "the merged watch at every shard's tip")
+        watch[3].set()
+        seen = list(watch[1])
+        added: dict = {}
+        for _i, etype, lc, name, _rv, root in seen:
+            if root and etype == "ADDED":
+                added[(lc, name)] = added.get((lc, name), 0) + 1
+        if len(added) != n_logical * roots or set(added.values()) != {1}:
+            raise RuntimeError(f"the merged watch saw {len(added)} roots ADDED "
+                               f"(want {n_logical * roots}), counts {set(added.values())}")
+        # the client's vector after the event seen halfway: each shard's RV
+        # at its last event among the first half of the arrivals (a DELETED
+        # event carries its object's last RV, not a stream position)
+        start = decode_rvmap(int(start_vector), n_shards)
+        mid, rest = list(start), {i: [] for i in range(n_shards)}
+        for k, e in enumerate(seen):
+            if k < len(seen) // 2 and e[1] != "DELETED":
+                mid[e[0]] = e[4]
+                rest[e[0]] = []
+            else:
+                rest[e[0]].append(e)
+        resumed = _watch_reader(router.address, f"/clusters/*{deployments}?watch=true"
+                                f"&resourceVersion={encode_rvmap(mid)}", ring)
+        try:
+            _until(lambda: caught_up(resumed), timeout,
+                   "the resumed watch at every shard's tip")
+        finally:
+            resumed[3].set()
+        for i in range(n_shards):
+            got = [e for e in resumed[1] if e[0] == i]
+            if got != rest[i]:
+                raise RuntimeError(f"the watch resumed from the midpoint's vector RV "
+                                   f"differs on shard s{i}: {len(got)} events, "
+                                   f"{len(rest[i])} expected")
+
+        # 7. the router's wildcard list against the shards' own
+        def lists_equal() -> bool:
+            merged = items_of(router)
+            union: dict = {}
+            for st in shards:
+                union.update(items_of(st))
+            return merged == union and len(merged) == n_logical * per_lc
+
+        _until(lists_equal, 60.0, "the router's wildcard list equal to the shards'")
+        fanout = _hist_window("router_scatter_fanout", fanout0)
+
+        # 8. each shard's core
+        per_shard = []
+        for i, (b, a) in enumerate(zip(before, after)):
+            ticks, empty, launches, quarantined = (x - y for x, y in zip(a, b))
+            if dev.type == "cuda" and (launches < ticks - empty or launches <= 0):
+                raise RuntimeError(f"shard s{i}: decide_and_match launched {launches} "
+                                   f"times in {ticks} fleet ticks, {empty} without rows")
+            if quarantined:
+                raise RuntimeError(f"shard s{i}: {quarantined} rows quarantined")
+            per_shard.append(dict(shard=f"s{i}", logical=owned[i], ticks=ticks,
+                                  empty_ticks=empty, launches=launches,
+                                  leaves=len(owned[i]) * roots * n_physical))
+        quarantined = counter("quarantined_rows") - quarantined0
+        if quarantined:
+            raise RuntimeError(f"{quarantined} rows quarantined")
+        for c in clients.values():
+            c.close()
+        ms = {k: np.array(v) * 1e3 for k, v in latencies.items()}
+        return dict(
+            shards=n_shards, logical=n_logical, physical=n_physical,
+            roots=n_logical * roots, leaves=n_leaves, ready_s=ready_s, posted_s=posted_s,
+            leaves_s=leaves_s, aggregated_s=aggregated_s, cpu_s=cpu_s,
+            create_ms={k: (len(v), float(np.percentile(v, 50)), float(np.percentile(v, 99)))
+                       for k, v in ms.items()},
+            smart_direct=direct, smart_fallback=fallback,
+            router_proxy=proxied, router_fanout=fanout,
+            watch_events=len(seen), resumed_events=sum(map(len, rest.values())),
+            ring_spread={f"s{i}": len(o) for i, o in enumerate(owned)},
+            per_shard=per_shard)
+    finally:
+        if watch is not None:
+            watch[3].set()
+        if router is not None:
+            router.stop()
+        for st in shards:
+            st.stop()
+        for st, agent in agents:
+            st.submit(_stop_agents([agent]))
+        for st in physical.values():
+            st.stop()
+        shutil.rmtree(root_dir, ignore_errors=True)
 
 
 async def _stop_agents(agents) -> None:

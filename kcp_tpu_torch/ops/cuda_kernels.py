@@ -26,8 +26,10 @@ The kernel is compiled with ``nvcc`` at first use into
 ``build/kcp_tpu_torch/`` at the repo root (a plain C entry point, loaded
 with ctypes). The library's file name carries a hash of every file under
 ``csrc/`` and of ``NVCC_FLAGS``, so a change to any of them builds anew.
-``decide_and_match.launches`` counts kernel launches; nothing else
-touches it.
+``decide_and_match.launches`` counts kernel launches, and
+``decide_and_match.by_thread`` the launches of each calling thread (a
+server's loop runs on a thread of its own, so a fleet of servers in one
+process reads its launches per server); nothing else touches either.
 
 ``decide_and_match_sharded`` is the mesh form (it replaces
 ``kcp_tpu/ops/pallas_kernels.py:decide_and_match_sharded``, a
@@ -37,7 +39,8 @@ shard's rows with its slot columns gathered to full S; the [C] (and
 [seg_capacity]) counts of shards that share a device accumulate into one
 zeroed buffer (the kernel adds into the counts it is given), and the
 per-device sums are added on the mesh's lead device.
-``decide_and_match_sharded.launches`` counts those per-shard launches.
+``decide_and_match_sharded.launches`` (and ``.by_thread``) counts those
+per-shard launches.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import NamedTuple
 
@@ -401,13 +405,26 @@ def decide_and_match(up_vals, up_exists, down_vals, down_exists, status_mask,
     decision, upsync, launched = _launch(
         up_vals, up_exists, down_vals, down_exists, status_mask,
         pair_hashes, sel_hashes, counts, seg_ids, seg_counts)
-    decide_and_match.launches += launched
+    _count(decide_and_match, launched)
     if seg_counts is None:
         return decision, upsync, counts
     return decision, upsync, counts, seg_counts
 
 
 decide_and_match.launches = 0
+decide_and_match.by_thread = {}
+_COUNT_LOCK = make_lock("cuda_kernels.launch_count")
+
+
+def _count(wrapper, launched: int) -> None:
+    """Add a wrapper's launches to its count and to the calling thread's
+    share of it, under a lock: the loops of several servers launch from
+    their own threads at once."""
+    if launched:
+        tid = threading.get_ident()
+        with _COUNT_LOCK:
+            wrapper.launches += launched
+            wrapper.by_thread[tid] = wrapper.by_thread.get(tid, 0) + launched
 
 
 def decide_and_match_shards(shards, lead: torch.device, seg_capacity=None):
@@ -440,7 +457,7 @@ def decide_and_match_shards(shards, lead: torch.device, seg_capacity=None):
                 seg_acc[dev] += out[3]
         elif dev.type == "cuda":
             d, u, launched = _launch(*args[:7], acc[dev], seg, seg_acc.get(dev))
-            decide_and_match_sharded.launches += launched
+            _count(decide_and_match_sharded, launched)
         else:
             raise ValueError(f"decide_and_match_sharded: unsupported device {dev}")
         decisions.append(d)
@@ -502,3 +519,4 @@ def decide_and_match_sharded(mesh, up_vals, up_exists, down_vals, down_exists,
 
 
 decide_and_match_sharded.launches = 0
+decide_and_match_sharded.by_thread = {}

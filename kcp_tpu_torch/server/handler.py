@@ -331,12 +331,21 @@ class RestHandler:
             segs = segs[2:]
         if (self.shard_name and self.ring_names and cluster != WILDCARD
                 and "x-kcp-ring-epoch" in req.headers):
-            # a smart client came DIRECT with its ring stamp: verifying
-            # HRW ownership needs the shard ring, which the port does not
-            # have yet (Server refuses ring names; ROADMAP A8)
-            raise NotImplementedError(
-                "ring-verified direct requests need sharding/ring.py, not "
-                "ported yet (ROADMAP A8)")
+            # a smart client came DIRECT with its ring stamp: verify HRW
+            # ownership (names alone determine it — URLs never enter the
+            # hash). A stale ring answers a typed 410 carrying OUR epoch;
+            # the client re-fetches /ring and takes one router hop.
+            from ..sharding.ring import owner_name
+
+            owner = self.ring_overrides.get(cluster) or owner_name(
+                self.ring_names, cluster)
+            if owner != self.shard_name:
+                resp = _error_response(errors.GoneError(
+                    f"ring mismatch: cluster {cluster!r} is owned by "
+                    f"shard {owner!r}, not {self.shard_name!r} — "
+                    f"re-fetch /ring and retry"))
+                resp.headers["X-Kcp-Ring-Epoch"] = str(self.ring_epoch)
+                return resp
         if not segs:
             return Response.of_json({"paths": ["/api", "/apis", "/healthz", "/version"]})
         head = segs[0]

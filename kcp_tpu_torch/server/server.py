@@ -77,20 +77,24 @@ class Config:
     # step 9; the reference's horizontal-sharding story,
     # docs/investigations/logical-clusters.md:83)
     role: str = "shard"  # shard (a normal server — the default) | router
-    # (the sharded control plane's scatter-gather frontend; needs
-    # sharding/, not ported yet: refused, ROADMAP A8) |
+    # (the sharded control plane's scatter-gather frontend: no storage,
+    # no controllers, no device; every request routes over the shard
+    # ring) |
     # replica (read-only follower fed by a primary's WAL feed, serving
     # GET/LIST/WATCH RV-honestly from its own store + encode cache) |
     # standby (a replica that promotes itself to primary when the
     # primary's breaker stays open past the hysteresis window)
     shards: str = ""  # router role: comma-separated [name=]url shard list
+    # (KCP_SHARDS env is the fallback; see kcp_tpu_torch/sharding/ring.py)
     shard_name: str = ""  # shard role: this server's stable name in the
-    # ring (KCP_SHARD_NAME env fallback). With ring_names set, the
-    # reference verifies direct smart-client requests against HRW
-    # ownership; that needs sharding/, so the port refuses the pair
-    # (ROADMAP A8)
+    # ring (KCP_SHARD_NAME env fallback). With ring_names set, direct
+    # smart-client requests (X-Kcp-Ring-Epoch stamped) are verified
+    # against HRW ownership: a stale-ring client gets a typed 410
+    # instead of a silently-wrong shard's answer
     ring_names: str = ""  # shard role: comma-separated names of EVERY
-    # shard in the ring (KCP_RING_NAMES env fallback)
+    # shard in the ring (KCP_RING_NAMES env fallback) — names alone
+    # determine HRW ownership, so a shard can verify direct requests
+    # without knowing anyone's address
     ring_epoch: int = 0  # shard role: the ring epoch this shard was
     # (re)started under; stamped on ring-mismatch 410s so smart clients
     # can tell a stale shard from a stale self
@@ -121,12 +125,6 @@ class Config:
     # Spread + locality weight come from KCP_FLEET_SPREAD /
     # KCP_FLEET_LOCALITY_WEIGHT.
 
-    def __post_init__(self) -> None:
-        if self.role == "router":
-            raise NotImplementedError(
-                "role='router' needs sharding/ (the shard ring and router), "
-                "not ported yet (ROADMAP A8)")
-
 
 class Server:
     """One kcp-tpu control-plane process."""
@@ -151,9 +149,59 @@ class Server:
         self.repl_applier = None
         # the controllers' device work (schema hashes, the fused tick) runs
         # on this device: resolved here, so a missing card fails before
-        # anything listens. A serve-only server resolves nothing.
+        # anything listens. A serve-only server (a router among them)
+        # resolves nothing.
         self.mesh = None
         self.device = None
+        if self.config.role == "router":
+            # scatter-gather frontend over a shard ring: no store, no
+            # controllers — requests relay to the owning shard(s). Authz
+            # is terminated BY THE SHARDS (bearer tokens pass through);
+            # enforcing it here too would need the router to share the
+            # shards' role objects it deliberately does not store.
+            from ..sharding import RouterHandler, ShardRing
+
+            if self.config.authz:
+                raise ValueError(
+                    "--authz with --role router: the router does not "
+                    "terminate authz — shards enforce it on every relayed "
+                    "request; run the router open and pass bearer tokens "
+                    "through")
+            if self.config.store_server:
+                raise ValueError("--store-server with --role router: a "
+                                 "router routes to --shards, not to a "
+                                 "storage backend")
+            ring = (ShardRing.from_spec(self.config.shards,
+                                        os.environ.get("KCP_REPLICAS", ""))
+                    if self.config.shards else ShardRing.from_env())
+            self.store = None
+            self.authenticator = None
+            self.handler = RouterHandler(
+                ring, token=self.config.store_token,
+                ca_file=self.config.store_ca_file)
+            self.certs = None
+            ssl_context = None
+            if self.config.durable:
+                # no WAL, but start() still renders admin.kubeconfig (and
+                # TLS persists pki/) under root_dir
+                os.makedirs(self.config.root_dir, exist_ok=True)
+            if self.config.tls:
+                from .certs import ServingCerts
+
+                cert_dir = (os.path.join(self.config.root_dir, "pki")
+                            if self.config.durable else None)
+                hosts = {self.config.listen_host, "127.0.0.1", "localhost"}
+                self.certs = ServingCerts.load_or_create(cert_dir,
+                                                         sorted(hosts))
+                ssl_context = self.certs.server_context()
+            self.http = HttpServer(self.handler, self.config.listen_host,
+                                   self.config.listen_port,
+                                   ssl_context=ssl_context)
+            self.client = None
+            self._controllers = []
+            self._post_start_hooks = []
+            self._stop = asyncio.Event()
+            return
         if self.install_controllers:
             if self.config.mesh:
                 self.mesh = mesh_on(self.config.mesh, self.config.device)
@@ -234,15 +282,23 @@ class Server:
             # anyway), so its admission chain would be dead weight; a
             # standby keeps the default chain for life after promotion
             admission=(None if self.config.role == "replica" else "auto"))
-        # smart-client ring identity: verifying direct requests against
-        # the shard ring needs sharding/, which the port does not have yet
-        if ((self.config.shard_name or os.environ.get("KCP_SHARD_NAME"))
-                and (self.config.ring_names
-                     or os.environ.get("KCP_RING_NAMES"))):
-            raise NotImplementedError(
-                "--shard-name with --ring-names verifies smart-client "
-                "requests against the shard ring, which needs sharding/, "
-                "not ported yet (ROADMAP A8)")
+        # smart-client ring identity (env fallbacks let subprocess fleets
+        # configure shards without new flags in every harness)
+        shard_name = (self.config.shard_name
+                      or os.environ.get("KCP_SHARD_NAME", ""))
+        ring_names = (self.config.ring_names
+                      or os.environ.get("KCP_RING_NAMES", ""))
+        if shard_name and ring_names:
+            names = tuple(n.strip() for n in ring_names.split(",")
+                          if n.strip())
+            if shard_name not in names:
+                raise ValueError(
+                    f"--shard-name {shard_name!r} is not in --ring-names "
+                    f"{sorted(names)}")
+            self.handler.shard_name = shard_name
+            self.handler.ring_names = names
+            self.handler.ring_epoch = self.config.ring_epoch or int(
+                os.environ.get("KCP_RING_EPOCH", "1") or "1")
         self._wire_replication()
         self.certs = None
         ssl_context = None

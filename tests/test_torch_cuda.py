@@ -17,6 +17,7 @@ All outputs are integers: every comparison is exact equality.
 """
 
 import asyncio
+import threading
 
 import numpy as np
 import pytest
@@ -56,9 +57,11 @@ def _case(rng, b, s, l, c, per_row, device):
 def test_kernel_equals_plain_version(cuda_device, per_row, b, s, l, c):
     case = _case(np.random.default_rng(b + s), b, s, l, c, per_row, cuda_device)
     before = decide_and_match.launches
+    mine = decide_and_match.by_thread.get(threading.get_ident(), 0)
     got = decide_and_match(*case)
     torch.cuda.synchronize()
     assert decide_and_match.launches == before + 1
+    assert decide_and_match.by_thread[threading.get_ident()] == mine + 1
     want = decide_and_match_plain(*case)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape

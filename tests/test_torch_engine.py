@@ -39,6 +39,7 @@ from kcp_tpu_torch.ops import encode as port_encode
 from kcp_tpu_torch.ops import hashing as port_hashing
 from kcp_tpu_torch.ops import labelmatch as port_lm
 from kcp_tpu_torch.parallel import mesh as pmesh
+from kcp_tpu_torch.scenarios import topology as port_topology
 from kcp_tpu_torch.store.selectors import parse_selector as port_parse_selector
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -58,6 +59,10 @@ torch.set_num_threads(1)
 # to the CPU
 ON_THE_CPU = ("start_syncer", "NegotiationController", "ClusterController",
               "DeploymentSplitter", "Config")
+
+
+# the fleet builders a mirrored file takes from ``helpers``
+FLEET_HELPERS = ("shard_fleet", "restart_shard", "move_shard")
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,6 +91,19 @@ def port_module(ref_file: str) -> types.ModuleType:
     for name in ON_THE_CPU:
         if name in mod.__dict__:
             setattr(mod, name, functools.partial(getattr(mod, name), device="cpu"))
+    # ``from helpers import shard_fleet`` binds the reference's fleet
+    # (helpers re-exports kcp_tpu.scenarios.topology): the port's is bound
+    # in its place. helpers' own wait_until stays.
+    for name in FLEET_HELPERS:
+        if getattr(mod.__dict__.get(name), "__module__", "").startswith("kcp_tpu."):
+            setattr(mod, name, getattr(port_topology, name))
+    # ``from test_sharding import _cm`` imports the reference test file: the
+    # names come from its mirror instead
+    for other, names in re.findall(r"^from (test_\w+) import \(?([\w\s,]+)\)?",
+                                   src, re.M):
+        ported = port_module(f"{other}.py")
+        for name in re.findall(r"\w+", names):
+            setattr(mod, name, getattr(ported, name))
     if "schema_hashes" in mod.__dict__:
         hashes = mod.schema_hashes
         mod.schema_hashes = lambda toks: hashes(torch.from_numpy(np.asarray(toks)))

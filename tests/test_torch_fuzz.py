@@ -2,21 +2,17 @@
 on the CPU.
 
 The reference's cases of ``test_watch_fuzz.py``, ``test_watch_scale.py``
-(watch windows, eviction, coalescing, bookmarks),
+(watch windows, eviction, coalescing, bookmarks, watches spread over
+read replicas through the router),
 ``test_differential_fuzz.py`` (``start_syncer`` fused against host, on
 a mesh too) and ``test_fleet.py`` (the fleet batch, quarantine, the
 ledger's segment counts, a mesh), run against the port
-(``test_torch_engine.port_module``). Left out, each for a named reason:
-
-- ``test_watch_scale.py::test_router_spreads_fresh_watches_across_replicas``
-  and ``::test_resume_through_router_spreads_to_replica``: both serve
-  through a ``role="router"`` server, and the shard router is not
-  ported yet (ROADMAP A8.2);
-- ``test_fleet.py::test_fleet_on_mesh_matches_unsharded_fleet``: it
-  asserts the JAX ``PartitionSpec`` of the fleet state
-  (``.sharding.spec``). ``test_fleet_on_mesh_matches_unsharded_fleet_port``
-  below runs the same schedule and asserts the same layout on the
-  port's ``ShardedTensor``.
+(``test_torch_engine.port_module``). Left out, for a named reason:
+``test_fleet.py::test_fleet_on_mesh_matches_unsharded_fleet``: it
+asserts the JAX ``PartitionSpec`` of the fleet state
+(``.sharding.spec``). ``test_fleet_on_mesh_matches_unsharded_fleet_port``
+below runs the same schedule and asserts the same layout on the port's
+``ShardedTensor``.
 """
 
 import asyncio
@@ -27,8 +23,6 @@ import pytest
 from test_torch_engine import _cases, port_module, run_mirrored
 
 _SKIP = {
-    "test_watch_scale.py": ("test_router_spreads_fresh_watches_across_replicas",
-                            "test_resume_through_router_spreads_to_replica"),
     "test_fleet.py": ("test_fleet_on_mesh_matches_unsharded_fleet",),
 }
 FILES = ("test_watch_fuzz.py", "test_watch_scale.py", "test_differential_fuzz.py",
@@ -46,8 +40,8 @@ def test_mirrored_fuzz_files_leave_out_only_the_named_cases():
     for ref_file, skipped in _SKIP.items():
         assert not {(ref_file, n) for n in skipped} & names
         assert all(hasattr(port_module(ref_file), n) for n in skipped)
-    # 1 + 10 + 6 + 7 test functions, less the 3 above
-    assert len(names) == 21
+    # 1 + 10 + 6 + 7 test functions, less the one above
+    assert len(names) == 23
 
 
 def test_fleet_on_mesh_matches_unsharded_fleet_port():

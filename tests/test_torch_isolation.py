@@ -9,8 +9,12 @@ through the controller plane, and starts ``kcp start``'s ``Server`` with
 its controllers on the CPU, registers one fake cluster and syncs one
 Deployment over REST and takes a ``/debug/trace``, solves a placement with
 ``fleet/solver.py`` and places roots through ``kcp start`` with the fleet
-scheduler (``fleet/scheduler.py``), all in a fresh interpreter (``-I``: no user
-site, no PYTHONPATH hooks) and inspects its ``sys.modules``. A static scan of the port's sources and of
+scheduler (``fleet/scheduler.py``), serves through a 2-shard fleet of
+``scenarios/topology.py`` behind the router (``sharding/``) with a smart
+client (``client/smart.py``) and runs the sharded front door
+(``demo.sharded_front_door_load``) at a tiny size, all in a fresh
+interpreter (``-I``: no user site, no PYTHONPATH hooks) and inspects its
+``sys.modules``. A static scan of the port's sources and of
 ``chip_smoke.py`` backs it up for code the loop does not reach.
 """
 
@@ -89,6 +93,21 @@ placed = FleetSolver(spread=1, device="cpu").solve(
     np.array([3], np.int32), np.ones((1, 2), bool), np.array([5, 9], np.int32),
     np.zeros(2, np.int32), np.zeros(1, np.int32)).tolist()
 fleet = demo.fleet_front_door_load("cpu", 1, 2, 2, timeout=60.0)
+
+# the sharded control plane: a router fleet, a smart client, phase 10's load
+import kcp_tpu_torch.client as client_pkg
+from kcp_tpu_torch.scenarios.topology import shard_fleet
+
+with shard_fleet(2) as (router, _shards, _ring):
+    smart = client_pkg.SmartRestClient(router.address, cluster="lc-x")
+    smart.create("configmaps", {"apiVersion": "v1", "kind": "ConfigMap",
+                 "metadata": {"name": "direct", "namespace": "default"}})
+    smart.close()
+    fleet_items = [o["metadata"]["name"] for o in
+                   client_pkg.multicluster_rest_client(router.address).list("configmaps")[0]]
+plane = demo.sharded_front_door_load("cpu", 2, 1, 1, n_shards=2, timeout=60.0)
+modules = {m for m in ("kcp_tpu_torch.sharding.router", "kcp_tpu_torch.client.smart",
+                       "kcp_tpu_torch.scenarios.topology") if m in sys.modules}
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "kcp_tpu"))
 print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
@@ -98,6 +117,8 @@ print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
                   "kubecon": kubecon, "golden": demo.golden(),
                   "front": [front["leaves"], front["device_lane"], front["trace"]["started"]],
                   "placed": placed, "fleet": fleet["capacity_change"]["first_solve_rows"],
+                  "fleet_items": fleet_items, "plane": plane["roots"],
+                  "modules": sorted(modules),
                   "loaded": loaded}))
 """
 
@@ -116,6 +137,8 @@ def test_port_closed_loop_loads_no_jax_and_no_reference_module():
     assert res["kubecon"] == res["golden"][-len(res["kubecon"]):]
     assert res["front"] == [1, {"lc-00": 1}, True]
     assert res["placed"] == [[0, 3]] and res["fleet"] == 2
+    assert res["fleet_items"] == ["direct"] and res["plane"] == 2
+    assert len(res["modules"]) == 3
     # the controller's queue is the native fair queue when the repo's
     # library builds, else the plain one: either is the port's own class
     assert res["queue"] in ("FairWorkQueue", "WorkQueue")

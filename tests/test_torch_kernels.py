@@ -219,3 +219,38 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     meta = [x.to("meta") for x in case]
     with pytest.raises(ValueError, match="unsupported device"):
         decide_and_match(*meta)
+
+
+def test_launch_counts_are_exact_across_threads():
+    """Each server loop of a fleet in one process launches from its own
+    thread: the wrapper's count loses no launch when many threads count
+    at once, and each thread's share is its own."""
+    import sys
+    import threading
+
+    wrapper = type("Wrapper", (), {"launches": 0, "by_thread": {}})
+    n_threads, per_thread = 16, 2000
+    seen = {}
+    # every thread lives until all have counted: idents of live threads differ
+    done = threading.Barrier(n_threads, timeout=60)
+
+    def count(i):
+        for _ in range(per_thread):
+            cuda_kernels._count(wrapper, 1)
+        cuda_kernels._count(wrapper, 0)
+        seen[i] = threading.get_ident()
+        done.wait()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=count, args=(i,)) for i in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert wrapper.launches == n_threads * per_thread
+    assert {wrapper.by_thread[tid] for tid in seen.values()} == {per_thread}

@@ -9,13 +9,8 @@ against the JAX package's, on the CPU.
   ``test_openapi.py`` and ``test_trace.py``, run against the port
   (``port_module``: the source read with ``kcp_tpu`` as
   ``kcp_tpu_torch``, ``Config`` and the controllers bound to
-  ``device="cpu"``). Left out, because they need the shard ring and
-  router (``sharding/``, not ported yet, ROADMAP A8):
-  ``test_consistent_reads.py::test_router_falls_back_on_barrier_timeout_no_surfaced_error``
-  and ``::test_differential_fuzz_read_your_writes_through_router`` (a
-  ``role="router"`` server), and
-  ``test_pagination.py::test_router_merged_pages_concatenate_to_one_shot_merge``
-  (``helpers.shard_fleet`` builds the reference's router fleet).
+  ``device="cpu"``; ``helpers.shard_fleet`` bound to the port's), every
+  case, the router cases among them.
 - REST parity: one seeded request script against the JAX
   ``ServerThread`` and the port's, both in memory, TLS and controllers
   off: equal status codes and bodies after dropping ``metadata.uid`` and
@@ -25,9 +20,11 @@ against the JAX package's, on the CPU.
   package's ``Server`` with controllers on the CPU (the JAX one on JAX
   CPU with its fused backend, the port with ``device="cpu"``): equal
   device counts per key and equal ``quota_usage_device``.
-- What the port refuses: ``role="router"``, ring-verified shard names,
-  ``device=None`` without a card when controllers are installed;
-  ``/debug/trace`` answers 503 when its profiler cannot start.
+- A router serves with no controllers and no device, and a ring-named
+  shard serves; the smart-client names load lazily. What the port
+  refuses: ``device=None`` without a card when controllers are
+  installed; ``/debug/trace`` answers 503 when its profiler cannot
+  start.
 """
 
 import http.client
@@ -42,12 +39,7 @@ import torch
 
 from test_torch_engine import _cases, port_module, run_mirrored
 
-_SKIP = {
-    "test_consistent_reads.py": (
-        "test_router_falls_back_on_barrier_timeout_no_surfaced_error",
-        "test_differential_fuzz_read_your_writes_through_router"),
-    "test_pagination.py": ("test_router_merged_pages_concatenate_to_one_shot_merge",),
-}
+_SKIP: dict = {}
 FILES = ("test_server.py", "test_admission.py", "test_authz.py", "test_authz_fuzz.py",
          "test_profile.py", "test_printers.py", "test_remote_store.py", "test_pool.py",
          "test_replication.py", "test_group_commit.py", "test_consistent_reads.py",
@@ -75,9 +67,9 @@ def test_mirrored_server_files_run_against_the_port():
     assert bound.func is Config and bound.keywords == {"device": "cpu"}
     names = {(p.values[0], p.values[1]) for p in MIRRORED}
     # 16 + 25 + 4 + 1 + 4 + 1 + 11 + 6 + 11 + 12 + 8 + 9 + 15 + 2 test
-    # functions, less the 3 router cases, and the 15 test methods of
-    # test_authz.py's, test_printers.py's and test_trace.py's classes
-    assert len(names) == 137
+    # functions and the 15 test methods of test_authz.py's,
+    # test_printers.py's and test_trace.py's classes
+    assert len(names) == 140
 
 
 # ------------------------------------------------------------ REST parity
@@ -300,16 +292,16 @@ def test_ledger_device_lane_equals_the_jax_servers():
 
 
 def test_router_and_fleet_name_their_roadmap_entry(monkeypatch):
-    """The router still refuses with its roadmap entry; fleet placement
-    (``Config(fleet=True)`` or ``KCP_FLEET=1``) serves, with a
-    ``FleetScheduler`` after the splitter among the controllers."""
+    """A router (``Config(role="router")``) serves with no store, no
+    controllers and no device, and a shard named in a ring serves and
+    verifies ring-stamped requests; fleet placement (``Config(fleet=True)``
+    or ``KCP_FLEET=1``) serves, with a ``FleetScheduler`` after the
+    splitter among the controllers."""
     from kcp_tpu_torch.fleet.scheduler import FleetScheduler
     from kcp_tpu_torch.reconcilers.deployment import DeploymentSplitter
-    from kcp_tpu_torch.server import Config, Server
+    from kcp_tpu_torch.server import Config, RestClient, Server
     from kcp_tpu_torch.server.threaded import ServerThread
-
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Config(role="router")
+    from kcp_tpu_torch.sharding import RouterHandler
 
     def controllers(config):
         st = ServerThread(config).start()
@@ -326,16 +318,45 @@ def test_router_and_fleet_name_their_roadmap_entry(monkeypatch):
     assert FleetScheduler in controllers(Config(durable=False, tls=False, device="cpu"))
     Server(Config(durable=False, tls=False, install_controllers=False))  # serve-only
     monkeypatch.delenv("KCP_FLEET")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with ServerThread(Config(durable=False, tls=False, install_controllers=False,
+                             shard_name="s0", ring_names="s0,s1")) as shard:
+        assert shard.server.handler.ring_names == ("s0", "s1")
+        # the default device is the card: the router never asks for one
+        with ServerThread(Config(role="router", shards=f"s0={shard.address}",
+                                 durable=False, tls=False)) as router:
+            server = router.server
+            assert isinstance(server.handler, RouterHandler)
+            assert server.store is None and server._controllers == []
+            assert server.device is None and server.mesh is None
+            assert not server.install_controllers
+            assert RestClient(router.address).request_raw("GET", "/readyz")[0] == 200
+    with pytest.raises(ValueError, match="not in --ring-names"):
         Server(Config(durable=False, tls=False, install_controllers=False,
-                      shard_name="s0", ring_names="s0,s1"))
+                      shard_name="s2", ring_names="s0,s1"))
 
 
 def test_no_smart_client_names_in_the_ports_client():
+    """The five smart-client names resolve lazily: importing the client
+    package alone does not load ``client.smart`` (which pulls in the
+    serving stack)."""
+    import subprocess
+    import sys
+
+    names = ("SmartRestClient", "SmartMultiClusterRestClient", "rest_client",
+             "multicluster_rest_client", "smart_enabled")
+    code = ("import sys, kcp_tpu_torch.client as c; "
+            "assert 'kcp_tpu_torch.client.smart' not in sys.modules; "
+            f"got = [getattr(c, n).__module__ for n in {names!r}]; "
+            "assert 'kcp_tpu_torch.client.smart' in sys.modules; print(set(got))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "{'kcp_tpu_torch.client.smart'}"
     import kcp_tpu_torch.client as client
 
-    for name in ("SmartRestClient", "rest_client", "smart_enabled"):
-        assert not hasattr(client, name)
+    assert set(names) <= set(client.__all__)
+    with pytest.raises(AttributeError):
+        client.NoSuchClient  # noqa: B018
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the host without a card")
