@@ -125,7 +125,18 @@ Phases, each fatal on failure:
    latency, ``router_proxy_seconds``, each shard's tenants, ticks,
    launches and leaves, process CPU).
 
-Phases 7 to 10 run right after 5b, before the profiler of 5c, so that
+11. the scenario harness — ``kcp_tpu_torch.scenarios.run_scenario`` with
+   ``device=None`` at seed 42, scale 1.0 (the catalog's full shape):
+   ``capacity-skew-binpack`` (10,000 x 8 solved on the card, byte-equal
+   to ``solve_host``, the 37-row re-solve), ``fleet-churn`` (200 flapping
+   physical clusters against the monolith's fleet scheduler and
+   controllers on the card; a ``decide_and_match`` launch per fleet tick
+   with rows, read on the server's loop), ``crd-churn`` (controllers on
+   the card) and ``crud-churn`` with ``KCP_TRACE=1`` and
+   ``KCP_TRACE_SAMPLE=1`` (assembled traces on the scorecard): every SLO
+   passes, every schedule hash equals ``SCENARIOS_r07.json``'s.
+
+Phases 7 to 11 run right after 5b, before the profiler of 5c, so that
 their host-clock readings, like those of 5 and 5b, follow no profiler
 session (phase 8's own ``/debug/trace`` calls come after its readings;
 each is timed against the serving loop: the request's wall time, the
@@ -1138,6 +1149,159 @@ def sharded_phase(torch, card: str) -> int:
     return launches
 
 
+def _scenario_core_reading() -> tuple[int, int, int]:
+    """On a scenario server's loop: the fleet batch's ticks and ticks
+    without rows of the loop's ``FusedCore`` (the one its controllers
+    share), and the kernel launches made from the loop's thread."""
+    import asyncio
+    import threading
+
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match
+    from kcp_tpu_torch.syncer.core import FusedCore
+
+    core = FusedCore._instances.get(id(asyncio.get_running_loop()))
+    fleet = core._fleet if core is not None else None
+    stats = fleet.stats if fleet is not None else {}
+    return (stats.get("ticks", 0), stats.get("empty_ticks", 0),
+            decide_and_match.by_thread.get(threading.get_ident(), 0))
+
+
+def scenario_phase(torch, card: str) -> int:
+    """11. The scenario harness on the card, through
+    ``kcp_tpu_torch.scenarios.run_scenario(..., device=None)`` at seed 42
+    and scale 1.0 (the catalog's full shape): ``capacity-skew-binpack``
+    (the engine-side solver on the card), ``fleet-churn`` (controllers and
+    the fleet scheduler on the monolith's ``FusedCore``; a kernel launch
+    per fleet tick with rows), ``crd-churn`` (controllers on the card) and
+    ``crud-churn`` with tracing on (``KCP_TRACE=1``, ``KCP_TRACE_SAMPLE=1``:
+    the scorecard carries the slowest assembled traces of each phase, with
+    ``conv.write``, ``server.request`` and ``store.commit``; ``store.fanout``
+    rides only the trace whose event led its fan-out batch, so it is
+    looked for among every trace of the run's span buffer, assembled with
+    ``obs.assemble.summarize_trace``). Each must pass every SLO with the
+    schedule hash of ``SCENARIOS_r07.json``. Each monolith's core is
+    read on its loop as the topology stops (the harness's ``make_topology``
+    wrapped to observe, nothing else changed). Returns the phase's kernel
+    launches."""
+    import tempfile
+
+    from kcp_tpu_torch import obs
+    from kcp_tpu_torch.obs import assemble
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match
+    from kcp_tpu_torch.scenarios import SCENARIOS, engine, run_scenario
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "SCENARIOS_r07.json")) as f:
+        reference = {r["name"]: r for r in json.load(f)["scenarios"]}
+    readings: dict = {}
+    buffered: list = []
+    make_topology = engine.make_topology
+
+    def observed_topology(spec, root_dir, device=None):
+        topology = make_topology(spec, root_dir, device)
+        stop = topology.stop
+
+        def stop_after_reading():
+            server = getattr(topology, "server", None)
+            if server is not None and server.server._controllers:
+                readings[spec.name] = server.call(_scenario_core_reading)
+            stop()
+
+        topology.stop = stop_after_reading
+        return topology
+
+    def run(name: str, traced: bool = False) -> tuple[dict, int]:
+        keys = ("KCP_TRACE", "KCP_TRACE_SAMPLE")
+        if traced:
+            os.environ.update(KCP_TRACE="1", KCP_TRACE_SAMPLE="1")
+            obs.TRACER.reconfigure()
+        decide_and_match.launches = 0
+        decide_and_match.by_thread.clear()
+        try:
+            with tempfile.TemporaryDirectory(prefix="kcp-chip-smoke-scenario-") as wd:
+                r = run_scenario(SCENARIOS[name], seed=42, scale=1.0, workdir=wd, device=None)
+            if traced:  # the run's span buffer (the servers run in this process)
+                by_trace: dict = {}
+                for span in obs.TRACER.spans():
+                    by_trace.setdefault(span["trace"], []).append(span)
+                buffered.extend(assemble.summarize_trace(v, k) for k, v in by_trace.items())
+        finally:
+            if traced:
+                for k in keys:
+                    os.environ.pop(k, None)
+                obs.TRACER.reconfigure()
+        torch.cuda.synchronize()
+        launches = decide_and_match.launches
+        missed = [f"{row['name']} ({row['metric']} {row['op']} {row['target']}, observed "
+                  f"{row['observed']})" for row in r["slos"] if not row["passed"]]
+        if not r["passed"] or missed:
+            fail(f"scenario {name}: {r.get('aborted') or '; '.join(missed)}")
+        want = reference[name]["schedule"]["hash"]
+        if r["schedule"]["hash"] != want:
+            fail(f"scenario {name}: schedule hash {r['schedule']['hash']} != {want} "
+                 f"(SCENARIOS_r07.json)")
+        m = r["measurements"]
+        print(f"scenario {name}: passed {len(r['slos'])} of {len(r['slos'])} SLOs in "
+              f"{m['duration_s']} s, schedule {r['schedule']['hash']} (= SCENARIOS_r07.json), "
+              f"{r['schedule']['ops']} ops, decide_and_match launches {launches} [{card}]")
+        return r, launches
+
+    engine.make_topology = observed_topology
+    try:
+        r, launches_place = run("capacity-skew-binpack")
+        m = r["measurements"]
+        print(f"scenario capacity-skew-binpack: {m['placement_rows']} x "
+              f"{m['placement_pclusters']} solve on the card placement_batched_ms "
+              f"{m['placement_batched_ms']} (host clock), placement_host_ms "
+              f"{m['placement_host_ms']}; mismatches {m['placement_mismatches']}, overcommit "
+              f"rows {m['placement_overcommit_rows']}, non-candidate replicas "
+              f"{m['placement_noncandidate_replicas']}, incremental extra rows "
+              f"{m['placement_incremental_extra_rows']} [{card}]")
+
+        r, launches_fleet = run("fleet-churn")
+        m = r["measurements"]
+        ticks, empty, on_loop = readings.get("fleet-churn", (0, 0, 0))
+        if launches_fleet == 0 or on_loop < ticks - empty:
+            fail(f"scenario fleet-churn: decide_and_match launches {launches_fleet} "
+                 f"({on_loop} on the server loop) for {ticks} fleet ticks, {empty} of "
+                 f"them without rows")
+        print(f"scenario fleet-churn: fleet_flaps {m['fleet_flaps']}, fleet_storm_churn "
+              f"{m['fleet_storm_churn']}, assignment_mismatches "
+              f"{m['assignment_mismatches']}, placement_resolves {m['placement_resolves']}; "
+              f"{ticks} fleet ticks ({empty} without rows), decide_and_match launches "
+              f"{on_loop} on the server loop ({launches_fleet} in the scenario) [{card}]")
+
+        r, launches_crd = run("crd-churn")
+        ticks, empty, on_loop = readings.get("crd-churn", (0, 0, 0))
+        print(f"scenario crd-churn: crd_servable_p99_ms "
+              f"{r['measurements']['crd_servable_p99_ms']}, crd_teardown_p99_ms "
+              f"{r['measurements']['crd_teardown_p99_ms']}; {ticks} fleet ticks ({empty} "
+              f"without rows) [{card}]")
+
+        r, launches_crud = run("crud-churn", traced=True)
+    finally:
+        engine.make_topology = make_topology
+    traces = [t for phase in (r.get("traces") or {}).values() for t in phase]
+    names = {n for t in traces for n in t.get("names", [])}
+    need = {"conv.write", "server.request", "store.commit"}
+    if not traces or not need <= names:
+        fail(f"scenario crud-churn (traced): {len(traces)} assembled traces, span names "
+             f"{sorted(names)} lack {sorted(need - names)}")
+    fanned = [t for t in buffered if need | {"store.fanout"} <= set(t["names"])]
+    if not fanned:
+        fail(f"scenario crud-churn (traced): none of the {len(buffered)} assembled traces "
+             f"of the span buffer holds conv.write, server.request, store.commit and "
+             f"store.fanout")
+    print(f"scenario crud-churn (KCP_TRACE=1, KCP_TRACE_SAMPLE=1): p99_convergence_ms "
+          f"{r['measurements']['p99_convergence_ms']}; the scorecard's {len(traces)} "
+          f"assembled traces over {len(r['traces'])} phases (slowest "
+          f"{max(t['dur_ms'] for t in traces)} ms) hold {sorted(names)}, "
+          f"{sum('store.fanout' in t['names'] for t in traces)} of them store.fanout; "
+          f"{len(fanned)} of the {len(buffered)} traces in the span buffer hold all four "
+          f"[{card}]")
+    return launches_place + launches_fleet + launches_crd + launches_crud
+
+
 def main() -> None:
     import torch
 
@@ -1249,6 +1413,10 @@ def main() -> None:
     #           behind the router (host clock, before the profiler too)
     sharded_launches = sharded_phase(torch, card)
 
+    # ---- 11. the scenario harness: the catalog's controller scenarios on
+    #           the card, and a traced crud-churn (before the profiler too)
+    scenario_launches = scenario_phase(torch, card)
+
     # ---- 3, 3b: the kernels' device times; 4, 4b: no index_add_ in either
     #          step (profiled, so after the main path's readings)
     device_times(timed, card)
@@ -1284,7 +1452,8 @@ def main() -> None:
     record.update(name="decide_and_match", route="cuda",
                   source="kcp_tpu_torch/csrc/decide_match.cu",
                   replaces="kcp_tpu/ops/pallas_kernels.py:129",
-                  launches=launches + front_launches + fleet_launches + sharded_launches,
+                  launches=(launches + front_launches + fleet_launches + sharded_launches
+                            + scenario_launches),
                   library_ms=None)
     record_sharded.update(name="decide_and_match_sharded", route="cuda",
                           source="kcp_tpu_torch/csrc/decide_match.cu",

@@ -199,12 +199,13 @@ class Monolith:
 
     def __init__(self, root_dir: str, env: dict | None = None,
                  durable: bool = False, controllers: bool = False,
-                 proc: bool = False):
+                 proc: bool = False, device=None):
         self.root_dir = root_dir
         self.env = env or {}
         self.durable = durable
         self.controllers = controllers
         self.proc = proc
+        self.device = device
         self.server: ServerThread | None = None
         self._child: subprocess.Popen | None = None
         self._child_url = ""
@@ -222,8 +223,10 @@ class Monolith:
                 args += ["--in-memory"]
             self._child, self._child_url = spawn_server(args, self.env)
             return self
+        # the device is resolved only when controllers are installed
         kw: dict = dict(durable=self.durable,
-                        install_controllers=self.controllers, tls=False)
+                        install_controllers=self.controllers, tls=False,
+                        device=self.device)
         if self.durable:
             kw["root_dir"] = os.path.join(self.root_dir, "mono")
         with _env_patch(self.env):
@@ -505,11 +508,13 @@ class NullTopology:
         pass
 
 
-def make_topology(spec, root_dir: str):
-    """Instantiate the topology a spec names."""
+def make_topology(spec, root_dir: str, device=None):
+    """Instantiate the topology a spec names. ``device`` is the device of
+    a server that installs controllers (``None``: the CUDA card); the
+    other topologies serve without controllers and resolve none."""
     args = dict(spec.topology_args)
     if spec.topology == "monolith":
-        return Monolith(root_dir, env=spec.env, **args)
+        return Monolith(root_dir, env=spec.env, device=device, **args)
     if spec.topology == "fleet":
         return RouterFleet(root_dir, env=spec.env, **args)
     if spec.topology == "replicated":

@@ -5,7 +5,9 @@ against the CPU, the controller plane on the card (the kubecon demo
 scenario and a small fleet), and ``kcp start``'s server on the card with
 the quota ledger fed by the kernel's per-segment counts, and the fleet
 solver on the card against its numpy twin, alone and through ``kcp
-start`` with fleet placement on.
+start`` with fleet placement on, and the scenario harness's
+``capacity-skew-binpack`` and ``fleet-churn`` with their device work on
+the card.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports neither JAX nor the JAX package, so on a machine
@@ -334,3 +336,16 @@ def test_fleet_placement_through_kcp_start_on_card(cuda_device):
     out = demo.fleet_front_door_load(None, 2, 2, 8, timeout=120.0)
     assert out["launches"] > 0 and out["leaves"] > 0
     assert out["capacity_change"]["first_solve_rows"] == 8
+
+
+@pytest.mark.parametrize("name", ["capacity-skew-binpack", "fleet-churn"])
+def test_scenario_on_card_passes_every_slo(cuda_device, name, tmp_path):
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match
+    from kcp_tpu_torch.scenarios import SCENARIOS, run_scenario
+
+    before = decide_and_match.launches
+    r = run_scenario(SCENARIOS[name], seed=42, scale=1.0, workdir=str(tmp_path),
+                     device="cuda")
+    assert r["passed"], [row for row in r["slos"] if not row["passed"]]
+    if name == "fleet-churn":
+        assert decide_and_match.launches > before

@@ -11,8 +11,9 @@ Deployment over REST and takes a ``/debug/trace``, solves a placement with
 ``fleet/solver.py`` and places roots through ``kcp start`` with the fleet
 scheduler (``fleet/scheduler.py``), serves through a 2-shard fleet of
 ``scenarios/topology.py`` behind the router (``sharding/``) with a smart
-client (``client/smart.py``) and runs the sharded front door
-(``demo.sharded_front_door_load``) at a tiny size, all in a fresh
+client (``client/smart.py``), runs the sharded front door
+(``demo.sharded_front_door_load``) and a ``crud-churn`` scenario through
+the scenario harness (``scenarios/``) at a tiny size, all in a fresh
 interpreter (``-I``: no user site, no PYTHONPATH hooks) and inspects its
 ``sys.modules``. A static scan of the port's sources and of
 ``chip_smoke.py`` backs it up for code the loop does not reach.
@@ -106,6 +107,12 @@ with shard_fleet(2) as (router, _shards, _ring):
     fleet_items = [o["metadata"]["name"] for o in
                    client_pkg.multicluster_rest_client(router.address).list("configmaps")[0]]
 plane = demo.sharded_front_door_load("cpu", 2, 1, 1, n_shards=2, timeout=60.0)
+
+# the scenario harness: one catalog scenario through the engine
+from kcp_tpu_torch.scenarios import SCENARIOS, run_scenario
+
+scenario = run_scenario(SCENARIOS["crud-churn"], seed=42, scale=0.25,
+                        workdir=tempfile.mkdtemp(), device="cpu")
 modules = {m for m in ("kcp_tpu_torch.sharding.router", "kcp_tpu_torch.client.smart",
                        "kcp_tpu_torch.scenarios.topology") if m in sys.modules}
 loaded = sorted(m for m in sys.modules
@@ -118,6 +125,7 @@ print(json.dumps({"converged": out["converged"], "ticks": out["ticks"],
                   "front": [front["leaves"], front["device_lane"], front["trace"]["started"]],
                   "placed": placed, "fleet": fleet["capacity_change"]["first_solve_rows"],
                   "fleet_items": fleet_items, "plane": plane["roots"],
+                  "scenario": [scenario["passed"], scenario["schedule"]["hash"]],
                   "modules": sorted(modules),
                   "loaded": loaded}))
 """
@@ -138,6 +146,7 @@ def test_port_closed_loop_loads_no_jax_and_no_reference_module():
     assert res["front"] == [1, {"lc-00": 1}, True]
     assert res["placed"] == [[0, 3]] and res["fleet"] == 2
     assert res["fleet_items"] == ["direct"] and res["plane"] == 2
+    assert res["scenario"] == [True, "c200cb6c90259953"]
     assert len(res["modules"]) == 3
     # the controller's queue is the native fair queue when the repo's
     # library builds, else the plain one: either is the port's own class

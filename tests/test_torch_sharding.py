@@ -91,11 +91,17 @@ def test_hrw_owners_equal_the_references():
 
 
 def test_scenario_model_names_its_roadmap_entry():
+    """The scenario model of ROADMAP A8.3 is ported: the package's names
+    resolve to the port's own spec, engine and catalog objects."""
     import kcp_tpu_torch.scenarios as scenarios
+    from kcp_tpu_torch.scenarios import catalog, engine, spec
 
-    for name in ("SCENARIOS", "run_scenario", "SLO", "Phase", "ScenarioSpec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8.3"):
-            getattr(scenarios, name)
+    assert scenarios.SCENARIOS is catalog.SCENARIOS
+    assert scenarios.run_scenario is engine.run_scenario
+    assert (scenarios.SLO, scenarios.Phase, scenarios.ScenarioSpec) == \
+        (spec.SLO, spec.Phase, spec.ScenarioSpec)
+    assert sorted(scenarios.__all__) == sorted(
+        ("SCENARIOS", "run_scenario", "SLO", "Phase", "ScenarioSpec"))
     assert scenarios.topology.shard_fleet.__module__ == "kcp_tpu_torch.scenarios.topology"
 
 
