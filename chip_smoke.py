@@ -136,9 +136,33 @@ Phases, each fatal on failure:
    ``KCP_TRACE_SAMPLE=1`` (assembled traces on the scorecard): every SLO
    passes, every schedule hash equals ``SCENARIOS_r07.json``'s.
 
-Phases 7 to 11 run right after 5b, before the profiler of 5c, so that
-their host-clock readings, like those of 5 and 5b, follow no profiler
-session (phase 8's own ``/debug/trace`` calls come after its readings;
+12. the fleet A/B — ``python -m kcp_tpu_torch.bench --fleet``'s lane at
+   its full default shape (131,072 x 64, 16,384 x 32 and 2,048 x 16
+   buckets, 24 straggler sections in an 8-slot bucket, 40 steps after 8
+   warm-up): per-bucket dispatch (the kernel's 3-output form once per
+   bucket and tick, S = 64, 32, 16 and 8), then ragged (the fleet form
+   once per tick), then the poison-row quarantine drill; the per-owner
+   patch streams equal, the drill green, rows per dispatch gained at
+   least 2x, one ``decide_and_match`` launch per dispatch in each mode;
+   rows/s, dispatches, rows per dispatch and tick p50/p99 per mode; then
+   every shape the run gave the kernel (form, B, S, L, C, mask and
+   segment capacity, in each mode and the drill) against the plain
+   version, exact, on the run's own inputs and on seeded ones;
+13. the gauntlet's controller config — ``kcp_tpu_torch.bench.gauntlet_bench``
+   with ``KCP_GAUNTLET_CONFIGS=3`` (``gauntlet-crd-5k``) at scale 1/50,
+   its controllers on the card: the row passes, the scorecard is not
+   degraded, the row's device is the card; then the port's lint gate
+   (``kcp_tpu_torch.analysis``) over ``kcp_tpu_torch/`` and
+   ``chip_smoke.py``, which must be clean.
+
+Every full (generation-2) garbage collection is timed, and phases 7-10,
+11, each mode of 12 and 13 print theirs. Phase 11 runs with the heap
+the earlier phases left collected once and frozen (its time and size
+printed), so that full collections during it scan only what it
+allocates; the heap is unfrozen after it. Phases 7 to 13 run right
+after 5b, before the profiler of 5c, so that their host-clock
+readings, like those of 5 and 5b, follow no profiler session (phase
+8's own ``/debug/trace`` calls come after its readings;
 each is timed against the serving loop: the request's wall time, the
 slowest ``/healthz`` round trip meanwhile, the loop watchdog's stalls
 and the loop's CPU ops in the trace).
@@ -152,6 +176,7 @@ script exits 2 before printing any result.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import signal
@@ -213,12 +238,12 @@ def fail(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if out.returncode != 0 or not out.stdout.strip():
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    from kcp_tpu_torch.bench import card_line as nvidia_smi
+
+    line = nvidia_smi()
+    if line is None:
+        fail("nvidia-smi printed no card")
+    return line
 
 
 def kernel_case(rng, b, s, l, c, per_row, torch, dev):
@@ -251,10 +276,10 @@ def kernel_case(rng, b, s, l, c, per_row, torch, dev):
     return tuple(t(a) for a in (up, upe, down, dne, mask, pair, sel))
 
 
-def segments(rng, b, torch, dev):
+def segments(rng, b, torch, dev, cap: int = SEG_CAPACITY):
     """Seeded segment ids: in range, negative (from the end and beyond it),
     out of range and SEG_NONE."""
-    seg = rng.integers(-2 * SEG_CAPACITY - 1, 2 * SEG_CAPACITY + 2, b).astype(np.int32)
+    seg = rng.integers(-2 * cap - 1, 2 * cap + 2, b).astype(np.int32)
     seg[rng.random(b) < 0.05] = 0xFFFF
     return torch.from_numpy(seg).to(dev)
 
@@ -383,12 +408,37 @@ def plan_text(plan) -> str:
             f"{plan.smem} B shared per block)")
 
 
+def check_case(name: str, case, kw: dict, torch, vacuous_fails: bool = True):
+    """``decide_and_match`` against its plain version on one case, exact;
+    fails if they differ or, with ``vacuous_fails``, if the case has no
+    decision, no selector hit or (fleet form) no segment count. Returns
+    the kernel's outputs, the max abs error and the launch's tile plan."""
+    from kcp_tpu_torch.ops import cuda_kernels
+
+    got = cuda_kernels.decide_and_match(*case, **kw)
+    torch.cuda.synchronize()
+    plan = cuda_kernels.last_plan
+    want = cuda_kernels.decide_and_match_plain(*case, **kw)
+    torch.cuda.synchronize()
+    err = 0
+    for label, g, w in zip(("decision", "upsync", "counts", "seg_counts"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{name}: {label} is {g.dtype}{tuple(g.shape)}, plain "
+                 f"{w.dtype}{tuple(w.shape)}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    if err:
+        fail(f"{name}: kernel differs from the plain version (max abs err {err})")
+    if vacuous_fails and (int(want[0].ne(0).sum()) == 0 or int(want[2].sum()) == 0 or (
+            len(want) > 3 and int(want[3].sum()) == 0)):
+        fail(f"{name}: vacuous case (no decisions, selector hits or segment counts)")
+    return got, err, plan
+
+
 def kernel_phase(rng, torch, dev, card: str, timed: list) -> dict:
     """3. decide_and_match against the plain version at four cases;
     returns the record of the fleet form at the serving shape (the form
     the main path launches) and adds each case to ``timed``."""
     from kcp_tpu_torch.models import reconcile_model as tm
-    from kcp_tpu_torch.ops import cuda_kernels
     from kcp_tpu_torch.ops.cuda_kernels import decide_and_match, decide_and_match_plain
 
     shapes = [
@@ -414,22 +464,7 @@ def kernel_phase(rng, torch, dev, card: str, timed: list) -> dict:
         kw = {}
         if fleet:
             kw = dict(seg_ids=segments(rng, sh["b"], torch, dev), seg_capacity=SEG_CAPACITY)
-        got = decide_and_match(*case, **kw)
-        torch.cuda.synchronize()
-        plan = cuda_kernels.last_plan
-        want = decide_and_match_plain(*case, **kw)
-        torch.cuda.synchronize()
-        err = 0
-        for label, g, w in zip(("decision", "upsync", "counts", "seg_counts"), got, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                fail(f"{name}: {label} is {g.dtype}{tuple(g.shape)}, plain "
-                     f"{w.dtype}{tuple(w.shape)}")
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-        if err:
-            fail(f"{name}: kernel differs from the plain version (max abs err {err})")
-        if int(want[0].ne(0).sum()) == 0 or int(want[2].sum()) == 0 or (
-                fleet and int(want[3].sum()) == 0):
-            fail(f"{name}: vacuous case (no decisions, selector hits or segment counts)")
+        got, err, plan = check_case(name, case, kw, torch)
         if name == "serving" and not (plan.bulk and plan.tail_rows == 0):
             fail(f"serving shape did not take the bulk path: {plan}")
         call_ms = time_ms(lambda: decide_and_match(*case, **kw), torch, 50)
@@ -1149,6 +1184,42 @@ def sharded_phase(torch, card: str) -> int:
     return launches
 
 
+class FullCollections:
+    """Times every full (generation-2) garbage collection of the process
+    through ``gc.callbacks``: the ms each one stalled every thread."""
+
+    def __init__(self) -> None:
+        self.pauses_ms: list[float] = []
+        self._began = 0.0
+        gc.callbacks.append(self._observe)
+
+    def _observe(self, phase: str, info: dict) -> None:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._began = time.perf_counter()
+        else:
+            self.pauses_ms.append((time.perf_counter() - self._began) * 1e3)
+
+    def since(self, mark: int) -> str:
+        p = self.pauses_ms[mark:]
+        return (f"{len(p)} full collections, longest {max(p, default=0.0):.1f} ms, "
+                f"{sum(p):.1f} ms in all")
+
+
+def freeze_heap() -> None:
+    """Collect the process's heap once and freeze what survives, so that
+    full collections during phase 11 scan only what it allocates; prints
+    the collection's time and the objects it left. ``gc.unfreeze()``
+    after phase 11 gives the heap back to the collector."""
+    t0 = time.perf_counter()
+    gc.collect()
+    took = time.perf_counter() - t0
+    gc.freeze()
+    print(f"heap: a full collection took {took * 1e3:.1f} ms; {gc.get_freeze_count()} "
+          f"objects frozen for phase 11")
+
+
 def _scenario_core_reading() -> tuple[int, int, int]:
     """On a scenario server's loop: the fleet batch's ticks and ticks
     without rows of the loop's ``FusedCore`` (the one its controllers
@@ -1284,6 +1355,11 @@ def scenario_phase(torch, card: str) -> int:
     traces = [t for phase in (r.get("traces") or {}).values() for t in phase]
     names = {n for t in traces for n in t.get("names", [])}
     need = {"conv.write", "server.request", "store.commit"}
+    print("scenario crud-churn (traced): the scorecard's traces, per phase: " + "; ".join(
+        f"{phase}: " + ", ".join(f"{t['dur_ms']} ms {t['spans']} spans slowest "
+                                 f"{t['slowest_span']['name']} {t['slowest_span']['dur_ms']} ms"
+                                 for t in ts)
+        for phase, ts in (r.get("traces") or {}).items()))
     if not traces or not need <= names:
         fail(f"scenario crud-churn (traced): {len(traces)} assembled traces, span names "
              f"{sorted(names)} lack {sorted(need - names)}")
@@ -1302,6 +1378,140 @@ def scenario_phase(torch, card: str) -> int:
     return launches_place + launches_fleet + launches_crd + launches_crud
 
 
+def fleet_ab_phase(torch, dev, card: str, gcs: FullCollections) -> int:
+    """12. The ``--fleet`` lane on the card at its full default shape,
+    through ``kcp_tpu_torch.bench.measure_fleet("cuda")`` (131,072 x 64,
+    16,384 x 32 and 2,048 x 16 buckets plus 24 straggler sections of 1-4
+    rows in an 8-slot bucket, 40 steps after 8 warm-up, a tenth of each
+    bucket's first 4,096 rows churned a step, seed 7): per-bucket dispatch
+    (the kernel's 3-output form once per bucket and tick, at S = 64, 32,
+    16 and 8) then ragged (its fleet form once per tick), then the
+    poison-row quarantine drill. Fails unless the per-owner patch streams
+    are equal, the drill is green, rows per dispatch gain at least 2x (the
+    reference CI's floor) and each mode launched the kernel once per
+    dispatch, warm-up included. Every shape the run gives the wrapper
+    (form, B, S, L, C, mask, segment capacity; the step's name for it is
+    wrapped to observe) is then held against the plain version, exact, on
+    the inputs of its first launch (copied as it launched) and on seeded
+    inputs of that shape, which fail if vacuous. Returns the phase's
+    kernel launches."""
+    from kcp_tpu_torch import bench
+    from kcp_tpu_torch.models import reconcile_model as tm
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match
+
+    warmup = int(os.environ.get("KCP_BENCH_FLEET_WARMUP", "8"))  # the lane's knob
+    mode = ["per_bucket"]
+    mark = [len(gcs.pauses_ms)]
+    seen: dict = {}  # (mode, B, S, L, C, per-row mask, cap) -> the first launch's inputs
+    launches: dict = {}
+
+    def observed(*args):
+        up, _upe, _down, _dne, mask, pair, sel, _seg, cap = args
+        key = (mode[0], *up.shape, pair.shape[1], sel.shape[0], mask.ndim == 2, cap)
+        if key not in seen:
+            seen[key] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        return decide_and_match(*args)
+
+    def on_mode(name: str, r: dict) -> None:
+        torch.cuda.synchronize()
+        launches[name] = decide_and_match.launches
+        decide_and_match.launches = 0
+        ticks = r["dispatches"] + warmup * (1 if name == "ragged" else r["buckets"])
+        print(f"fleet A/B {name}: {r['rows']} rows in {r['buckets']} buckets, "
+              f"{r['sections']} sections; {r['rows_per_sec']:.1f} rows/s, "
+              f"{r['dispatches']} dispatches, {r['rows_per_dispatch']:.1f} rows per "
+              f"dispatch, tick p50 {r['tick_ms_p50']:.3f} ms p99 {r['tick_ms_p99']:.3f} ms "
+              f"(host clock; {gcs.since(mark[0])} in the mode), {r['patch_rows']} patch "
+              f"rows; decide_and_match launches {launches[name]} for {ticks} dispatches "
+              f"with warm-up [{card}]")
+        if launches[name] != ticks:
+            fail(f"fleet A/B {name}: {launches[name]} decide_and_match launches for "
+                 f"{ticks} dispatches")
+        mode[0] = "ragged" if name == "per_bucket" else "drill"
+        mark[0] = len(gcs.pauses_ms)
+
+    decide_and_match.launches = 0
+    tm.decide_and_match = observed
+    try:
+        head = asyncio.run(bench.measure_fleet("cuda", on_mode=on_mode))
+    finally:
+        tm.decide_and_match = decide_and_match
+    torch.cuda.synchronize()
+    drill_launches = decide_and_match.launches
+    fb = head["fleet_bench"]
+    drill = fb["quarantine_drill"]
+    if not fb["streams_equal"]:
+        fail("fleet A/B: ragged and per-bucket patch streams differ")
+    if not drill["ok"]:
+        fail(f"fleet A/B: quarantine drill failed: {drill}")
+    if head["value"] < 2.0:
+        fail(f"fleet A/B: rows per dispatch gain {head['value']}x < 2.0x")
+    print(f"fleet A/B: rows per dispatch gain {head['value']}x (floor 2.0), combined "
+          f"speed-up {fb['combined_speedup']}x (printed, not held), streams equal over "
+          f"{fb['sections']} owners; quarantine drill {drill} with {drill_launches} "
+          f"launches [{card}]")
+    # the phase's shapes against the plain version (after the counts were read)
+    rng = np.random.default_rng(2026)
+    for (name, b, s, l, c, per_row, cap), args in seen.items():
+        fleet = args[7] is not None
+        kw = dict(seg_ids=args[7], seg_capacity=cap) if fleet else {}
+        label = (f"decide_and_match [phase 12 {name}{', fleet form' if fleet else ''}: "
+                 f"B={b} S={s} mask={'row' if per_row else 'bucket'} L={l} C={c}"
+                 f"{f' cap={cap}' if fleet else ''}]")
+        got, _err, _plan = check_case(label, args[:7], kw, torch, vacuous_fails=False)
+        run_rows = int(got[0].ne(0).sum())
+        case = kernel_case(rng, b, s, l, c, per_row, torch, dev)
+        seeded = dict(seg_ids=segments(rng, b, torch, dev, cap), seg_capacity=cap) if fleet \
+            else {}
+        _got, _err, plan = check_case(f"{label} seeded", case, seeded, torch)
+        print(f"kernel {label}: equal (tolerance: exact) on the run's inputs ({run_rows} "
+              f"rows decided) and on seeded inputs; {plan_text(plan)} [{card}]")
+    del seen
+    return sum(launches.values()) + drill_launches
+
+
+def gauntlet_phase(torch, card: str) -> None:
+    """13. The gauntlet's controller config on the card:
+    ``kcp_tpu_torch.bench.gauntlet_bench(device=None)`` with
+    ``KCP_GAUNTLET_CONFIGS=3`` (``gauntlet-crd-5k``: a monolith whose
+    controllers hash schemas on the card) at scale 1/50 (100 tenants),
+    its relist A/B at the reference CI's 2,000 objects in pages of 250
+    (the knobs are set in this process's environment; nothing later reads
+    them). Fails on a row that did not pass, a degraded scorecard, or a
+    row whose device is not the card. Then the port's lint gate over its
+    default targets (``kcp_tpu_torch/``, ``chip_smoke.py``), which must
+    be clean."""
+    from kcp_tpu_torch import bench
+    from kcp_tpu_torch.analysis import run_lint
+
+    os.environ.update(KCP_GAUNTLET_CONFIGS="3", KCP_GAUNTLET_SCALE="50",
+                      KCP_BENCH_PAG_OBJECTS="2000", KCP_BENCH_PAG_PAGE="250")
+    for k in ("KCP_GAUNTLET_SOAK", "KCP_GAUNTLET_OPS"):
+        os.environ.pop(k, None)
+    t0 = time.perf_counter()
+    card_row = bench.gauntlet_bench(None)
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    rows = card_row["rows"]
+    if card_row.get("degraded") or len(rows) != 1 or not rows[0].get("passed"):
+        fail(f"gauntlet config 3: {json.dumps(card_row)[:2000]}")
+    row = rows[0]
+    if not str(row.get("device")).startswith("cuda"):
+        fail(f"gauntlet config 3: controllers on {row.get('device')}, not the card")
+    print(f"gauntlet [3] {row['name']} at {row['scale']}: passed {len(row['slos'])} of "
+          f"{len(row['slos'])} SLOs, {row['tenants']} tenants, reconciles/s "
+          f"{row['reconciles_per_sec']}, convergence p99 {row['convergence_p99_ms']} ms, "
+          f"lost acked writes {row['lost_acked_writes']}, memory growth "
+          f"{row['memory_growth_ratio']}, {row['duration_s']} s; controllers on "
+          f"{row['device']}; relist A/B {card_row['relist']['pages']} pages, bytes equal "
+          f"{card_row['relist']['bytes_equal']}; {took:.1f} s [{card}]")
+    report = run_lint(os.path.dirname(os.path.abspath(__file__)))
+    if not report.ok or report.unused_waivers:
+        fail("lint gate:\n" + report.render())
+    print(f"lint gate: {len(report.findings)} findings, {len(report.waived)} waived, "
+          f"{report.files_checked} files (kcp_tpu_torch/, chip_smoke.py)")
+
+
 def main() -> None:
     import torch
 
@@ -1316,6 +1526,7 @@ def main() -> None:
     from kcp_tpu_torch.utils.trace import REGISTRY
 
     t_all = time.perf_counter()
+    gcs = FullCollections()
     dev = torch.device("cuda")
     # ---- 1. device
     card = card_line()
@@ -1395,6 +1606,7 @@ def main() -> None:
     # ---- 7. the controller plane at a platform team's size; 7b. the two
     #          demo scenarios, unsharded and on mesh "4" (before any
     #          profiler session, like 5 and 5b)
+    mark = len(gcs.pauses_ms)
     controller_plane_phase(torch, dev, card)
     demo_phase(torch, dev, card)
 
@@ -1412,10 +1624,30 @@ def main() -> None:
     # ---- 10. the sharded front door: four shards' controllers on the card
     #           behind the router (host clock, before the profiler too)
     sharded_launches = sharded_phase(torch, card)
+    print(f"heap: phases 7-10 had {gcs.since(mark)}")
 
     # ---- 11. the scenario harness: the catalog's controller scenarios on
-    #           the card, and a traced crud-churn (before the profiler too)
+    #           the card, and a traced crud-churn (before the profiler too),
+    #           with the heap the earlier phases left frozen: full
+    #           collections over it stall every thread mid-request, and
+    #           once made every one of the traced run's slowest traces a
+    #           read. The heap is given back to the collector after it, so
+    #           that phases 12-13 read the program as it runs
+    freeze_heap()
+    mark = len(gcs.pauses_ms)
     scenario_launches = scenario_phase(torch, card)
+    gc.unfreeze()
+    print(f"heap: phase 11 had {gcs.since(mark)} (heap frozen); unfrozen")
+
+    # ---- 12. the --fleet lane at its full default shape: per-bucket then
+    #           ragged dispatch, the quarantine drill (host clock, before
+    #           the profiler too); then its shapes against the plain version
+    fleet_ab_launches = fleet_ab_phase(torch, dev, card, gcs)
+
+    # ---- 13. the gauntlet's controller config on the card; the lint gate
+    mark = len(gcs.pauses_ms)
+    gauntlet_phase(torch, card)
+    print(f"heap: phase 13 had {gcs.since(mark)}")
 
     # ---- 3, 3b: the kernels' device times; 4, 4b: no index_add_ in either
     #          step (profiled, so after the main path's readings)
@@ -1453,7 +1685,7 @@ def main() -> None:
                   source="kcp_tpu_torch/csrc/decide_match.cu",
                   replaces="kcp_tpu/ops/pallas_kernels.py:129",
                   launches=(launches + front_launches + fleet_launches + sharded_launches
-                            + scenario_launches),
+                            + scenario_launches + fleet_ab_launches),
                   library_ms=None)
     record_sharded.update(name="decide_and_match_sharded", route="cuda",
                           source="kcp_tpu_torch/csrc/decide_match.cu",
