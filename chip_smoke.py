@@ -37,8 +37,9 @@ Phases, each fatal on failure:
    tick, nothing is quarantined;
 5c. after the main path, what needs the profiler (a profiler session
    can leave later launches slower on the host, so none runs before the
-   host-clock readings of phases 5 and 5b): the device time of every phase-3 and 3b case and
-   its share of the bound rate; the ``index_add_`` checks of 4 and 4b;
+   host-clock readings of phases 5 and 5b): the device time of every phase-3, 3b and 14 case,
+   back to back and with the L2 flushed before every call, and the cold
+   time's share of the bound rate; the ``index_add_`` checks of 4 and 4b;
    then a short profiled loop (device busy share, top device events, and
    how many ``index_add_`` kernels ran: none is expected);
 6. engine path — ``start_syncer`` over two ``LogicalStore``s on the card,
@@ -153,13 +154,30 @@ Phases, each fatal on failure:
    its controllers on the card: the row passes, the scorecard is not
    degraded, the row's device is the card; then the port's lint gate
    (``kcp_tpu_torch.analysis``) over ``kcp_tpu_torch/`` and
-   ``chip_smoke.py``, which must be clean.
+   ``chip_smoke.py``, which must be clean;
+14. the suite — ``kcp_tpu_torch.bench.suite("cuda")`` (``python -m
+   kcp_tpu_torch.bench --suite``) at its default shape: BASELINE
+   configs[2..4] (``split_replicas`` over 10,000 x 8, 5,000 schemas
+   tokenized on the host and hashed on the card, label fan-out over
+   100,000 x 8 pair hashes x 64 selectors) and the decision+fanout A/B at
+   B=131,072, S=64, L=8, C=64, bucket-wide mask: the plain version eager,
+   compiled by ``torch.compile`` and the kernel (91 launches, the phase's
+   count); the kernel at that shape equal to the plain version on the
+   lane's inputs and on a seeded case with ~30% selector hits; the
+   compiled plain version equal to the plain one there and at the serving
+   fleet form; each shape's kernel, compiled and plain time and bound;
+15. the sharded fleet's lanes at ``scripts/ci.sh``'s shapes, held to its
+   gates: ``--sharded`` (1 and 2 ``kcp start`` shard processes),
+   ``--smartclient`` and ``--elastic`` (2 -> 4 shards live); no server
+   runs controllers, so these are host-path numbers on this machine's
+   CPU; then a shard child and a ``--shard-loadgen`` child that load no
+   JAX or JAX-package module.
 
 Every full (generation-2) garbage collection is timed, and phases 7-10,
-11, each mode of 12 and 13 print theirs. Phase 11 runs with the heap
+11, each mode of 12, 13 and 15 print theirs. Phase 11 runs with the heap
 the earlier phases left collected once and frozen (its time and size
 printed), so that full collections during it scan only what it
-allocates; the heap is unfrozen after it. Phases 7 to 13 run right
+allocates; the heap is unfrozen after it. Phases 7 to 15 run right
 after 5b, before the profiler of 5c, so that their host-clock
 readings, like those of 5 and 5b, follow no profiler session (phase
 8's own ``/debug/trace`` calls come after its readings;
@@ -374,32 +392,70 @@ def smoke_mesh(spec: str, dev):
     return mesh_from_spec(spec, devices=[dev] * SMOKE_SHARDS)
 
 
-def kernel_device_ms(fn, torch, calls: int = 20) -> float | None:
-    """The kernel's device time per call of ``fn`` (profiler; every launch
-    of the call summed, so a sharded call counts all its shards), or None
-    when the profiler sees no device time."""
-    _wall, ev = device_profile(lambda: [fn() for _ in range(calls)], torch)
-    dev_us = [us for k, (_n, us) in ev.items() if "decide_match_kernel" in k]
-    return sum(dev_us) / calls / 1e3 if dev_us else None
+#: bytes read between two calls of a cold-L2 device time: over 5x the
+#: H100's 50 MiB L2, so no input of the call before stays resident
+L2_FLUSH_BYTES = 256 * 2**20
 
 
-def device_times(timed: list, card: str) -> None:
-    """The kernels' device times, read with the profiler after the main
-    path has run (a profiler session can leave later launches slower on
-    the host, which would skew the main path's host-clock readings).
-    ``timed`` holds (label, call, bound ms, back-to-back call ms, record
-    or None) from phases 3 and 3b; each record's ``ms`` is set here, to
+def kernel_device_ms(fn, torch, calls: int = 20,
+                     kernel: str | None = "decide_match_kernel",
+                     flush=None) -> float | None:
+    """The device time per call of ``fn`` of the events named ``kernel``
+    (every event with ``kernel=None``; profiler; every launch of the call
+    summed, so a sharded call counts all its shards), or None when the
+    profiler sees no such device time. With ``flush``, ``flush()`` runs
+    before every call (a cold L2) and, with ``kernel=None``, its own device
+    time, profiled alone, is taken off."""
+    def total(run) -> float | None:
+        _wall, ev = device_profile(run, torch)
+        dev_us = [us for k, (_n, us) in ev.items() if kernel is None or kernel in k]
+        return sum(dev_us) if dev_us else None
+
+    if flush is None:
+        us = total(lambda: [fn() for _ in range(calls)])
+        return us / calls / 1e3 if us is not None else None
+    us = total(lambda: [(flush(), fn()) for _ in range(calls)])
+    if us is not None and kernel is None:
+        flush_us = total(lambda: [flush() for _ in range(calls)])
+        us = us - flush_us if flush_us is not None else None
+    return us / calls / 1e3 if us is not None else None
+
+
+def device_times(timed: list, card: str, kernel: str | None = "decide_match_kernel") -> None:
+    """The device times of ``timed``'s calls, read with the profiler after
+    the main path has run (a profiler session can leave later launches
+    slower on the host, which would skew the main path's host-clock
+    readings). ``timed`` holds (label, call, bound ms, back-to-back call
+    ms, record or None) from phases 3, 3b and 14; ``kernel`` names the
+    events counted (None: all of them). Each call is read twice: back to
+    back (the inputs of 64-77 MB partly stay in the 50 MiB L2, so this
+    can beat the bound, which reads every input from memory) and with the
+    L2 flushed before every call (``L2_FLUSH_BYTES`` read). Each record's
+    ``ms`` is the cold one, the time the bound is for; it falls back to
     the back-to-back call time where the profiler sees no device time."""
     import torch
 
+    buf = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def flush():
+        buf.sum()
+
+    seen = "profiler" if kernel else "profiler, every device event of the call"
     for label, fn, bound_ms, call_ms, record in timed:
-        dev_ms = kernel_device_ms(fn, torch)
-        ms = dev_ms if dev_ms is not None else call_ms
+        warm_ms = kernel_device_ms(fn, torch, kernel=kernel)
+        cold_ms = kernel_device_ms(fn, torch, kernel=kernel, flush=flush)
+        ms = cold_ms if cold_ms is not None else call_ms
         if record is not None:
             record["ms"] = ms
-        print(f"device time {label}: {ms:.4f} ms "
-              f"({'profiler' if dev_ms is not None else 'events: profiler saw no device time'}), "
-              f"{bound_ms / ms * 100:.1f}% of the bound rate [{card}]")
+        warm = (f"back to back {warm_ms:.4f} ms ({bound_ms / warm_ms * 100:.1f}%, reads "
+                f"served from L2 in part)" if warm_ms is not None else
+                "back to back: profiler saw no device time")
+        cold = (f"cold L2 {ms:.4f} ms ({seen})" if cold_ms is not None else
+                f"cold L2: profiler saw no device time, the back-to-back call's {ms:.4f} "
+                f"ms (events) in its place")
+        print(f"device time {label}: {cold}, {bound_ms / ms * 100:.1f}% of the bound rate; "
+              f"{warm} [{card}]")
+    del buf
 
 
 def plan_text(plan) -> str:
@@ -864,14 +920,14 @@ def front_door_phase(torch, card: str) -> int:
     return launches
 
 
-def _child(module: str, *args: str, env_extra: dict | None = None):
+def _child(module: str, *args: str, env_extra: dict | None = None, stdin=None):
     """A binary of the port as a child process, through ``WRAPPER``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (os.getcwd(), os.environ.get("PYTHONPATH", "")) if p),
         **(env_extra or {}))
     env.pop("KCP_DEVICE", None)  # no --device: each uses the card
     code = WRAPPER % (FORBIDDEN, module.rsplit(".", 1)[-1], module)
-    return subprocess.Popen([sys.executable, "-c", code, *args], env=env,
+    return subprocess.Popen([sys.executable, "-c", code, *args], env=env, stdin=stdin,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -1512,6 +1568,227 @@ def gauntlet_phase(torch, card: str) -> None:
           f"{report.files_checked} files (kcp_tpu_torch/, chip_smoke.py)")
 
 
+def suite_seeded(ab, rng):
+    """The suite A/B's inputs (numpy, the lane's) with ~3% spec-dirty, ~2%
+    status-dirty, ~2% deleted and ~2% not-yet-created rows, and ~30% of
+    rows carrying a selector among their pair hashes."""
+    up, upe, down, dne, mask, pair, sels = (np.array(a) for a in ab)
+    b = up.shape[0]
+    down[rng.random(b) < 0.03, 0] ^= 1
+    down[rng.random(b) < 0.02, -1] ^= 1
+    upe[rng.random(b) < 0.02] = False
+    dne[rng.random(b) < 0.02] = False
+    hit = rng.random(b) < 0.3
+    pair[hit, rng.integers(0, pair.shape[1], int(hit.sum()))] = rng.choice(sels, int(hit.sum()))
+    return up, upe, down, dne, mask, pair, sels
+
+
+def suite_phase(torch, dev, card: str, timed: list, compiled_timed: list) -> int:
+    """14. ``python -m kcp_tpu_torch.bench --suite``'s lane on the card at
+    its default shape (``kcp_tpu_torch.bench.suite("cuda")``): BASELINE
+    configs[2..4] and the decision+fanout A/B at B = 131,072, S = 64, L = 8,
+    C = 64, bucket-wide mask; eager, ``torch.compile``-d (the compile in a
+    warm-up call of its own) and the kernel, whose 91 launches (a warm-up
+    and 3 x 30) are the phase's count. Then the kernel at that shape
+    against ``decide_and_match_plain``, exact, on the lane's inputs and on
+    a seeded case of them (about 30% selector hits; fails if vacuous), and
+    ``torch.compile(decide_and_match_plain)`` against the plain version,
+    exact, at that shape and at the serving fleet form (phase 3's
+    ``SERVING``, seg_ids, cap 8); each shape's kernel, compiled and plain
+    times (CUDA events) and its bound. The suite shape's kernel joins
+    ``timed`` and both shapes' compiled compositions ``compiled_timed``, so
+    that their device times are read with the profiler after the main
+    path. Returns the lane's kernel launches."""
+    from kcp_tpu_torch import bench
+    from kcp_tpu_torch.models import reconcile_model as tm
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match, decide_and_match_plain
+
+    os.environ.pop("KCP_BENCH_ROWS", None)  # the lane's default rows
+    # inductor compiles in this process: no pool of compile workers outlives it
+    os.environ["TORCHINDUCTOR_COMPILE_THREADS"] = "1"
+    decide_and_match.launches = 0
+    t0 = time.perf_counter()
+    out = bench.suite("cuda")
+    torch.cuda.synchronize()
+    launches = decide_and_match.launches
+    took = time.perf_counter() - t0
+    if launches != 91:
+        fail(f"suite: decide_and_match launched {launches} times for 1 + 3 x 30 calls")
+    names = [r["lane"] for r in out["suite"]]
+    if names != ["splitter bin-packing", "schema hash bucketing", "label fan-out",
+                 "decision+fanout eager", "decision+fanout torch.compile",
+                 "decision+fanout CUDA"] or out["device"] != "cuda":
+        fail(f"suite: rows {names} on {out['device']}")
+    for r in out["suite"]:
+        print(f"suite {r['lane']} ({r['scale']}): {r['rate']}; "
+              f"{out['seconds'][r['lane']] * 1e3:.4f} ms per call (host clock, the median "
+              f"of 3 averages over 30 calls) [{card}]")
+    print(f"suite: torch.compile's warm-up call {out['compile_s']:.2f} s (outside every "
+          f"rate); decide_and_match launches {launches}; the lane {took:.1f} s [{card}]")
+
+    x = bench.suite_inputs(131072)
+    lane = tuple(tm.to_device(a, dev) for a in x["ab"])
+    got, _err, _plan = check_case("suite A/B, the lane's inputs", lane, {}, torch,
+                                  vacuous_fails=False)
+    lane_rows, lane_hits = int(got[0].ne(0).sum()), int(got[2].sum())
+    seeded = tuple(tm.to_device(a, dev) for a in suite_seeded(x["ab"],
+                                                              np.random.default_rng(2027)))
+    _got, err, plan = check_case("suite A/B, seeded", seeded, {}, torch)
+    print(f"kernel decide_and_match [suite: B=131072 S=64 mask=bucket L=8 C=64]: equal "
+          f"(tolerance: exact) on the lane's inputs ({lane_rows} rows decided, {lane_hits} "
+          f"selector hits: the lane's downstream mirror is its upstream's copy) and on "
+          f"seeded inputs (max abs err {err}); {plan_text(plan)} [{card}]")
+    del lane
+    rng = np.random.default_rng(2028)
+    serving = kernel_case(rng, **SERVING, torch=torch, dev=dev)
+    serving_kw = dict(seg_ids=segments(rng, SERVING["b"], torch, dev), seg_capacity=SEG_CAPACITY)
+    compiled = torch.compile(decide_and_match_plain, dynamic=False)
+    for name, case, kw in (("suite: B=131072 S=64 mask=bucket L=8 C=64", seeded, {}),
+                           (f"serving, fleet form: B={SERVING['b']} S={SERVING['s']} "
+                            f"mask=row L={SERVING['l']} C={SERVING['c']} cap={SEG_CAPACITY}",
+                            serving, serving_kw)):
+        t0 = time.perf_counter()
+        got_c = compiled(*case, **kw)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        want = decide_and_match_plain(*case, **kw)
+        for label, g, w in zip(("decision", "upsync", "counts", "seg_counts"), got_c, want):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+                fail(f"torch.compile [{name}]: {label} differs from the plain version")
+        kernel_ms = time_ms(lambda case=case, kw=kw: decide_and_match(*case, **kw), torch, 50)
+        compiled_ms = time_ms(lambda case=case, kw=kw: compiled(*case, **kw), torch, 50)
+        plain_ms = time_ms(lambda case=case, kw=kw: decide_and_match_plain(*case, **kw),
+                           torch, 10)
+        inputs = (*case, kw["seg_ids"]) if kw else case
+        bound_ms, bound_by, nbytes = bound(inputs, want)
+        print(f"[{name}] kernel {kernel_ms:.4f} ms, torch.compile {compiled_ms:.4f} ms "
+              f"(compiled equal to the plain version, exact; its first call {compile_s:.2f} s), "
+              f"plain {plain_ms:.4f} ms per back-to-back call (events), bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B); kernel/compiled "
+              f"{compiled_ms / kernel_ms:.2f}x [{card}]")
+        label = f"decide_and_match [phase 14 {name}]"
+        if not kw:  # the serving shape's kernel is timed from phase 3
+            timed.append((label, lambda case=case: decide_and_match(*case), bound_ms,
+                          kernel_ms, None))
+        compiled_timed.append((f"torch.compile(decide_and_match_plain) [phase 14 {name}]",
+                               lambda case=case, kw=kw: compiled(*case, **kw), bound_ms,
+                               compiled_ms, None))
+    torch.cuda.synchronize()
+    return launches
+
+
+# phase 15: the reference CI's shapes of the three lanes (scripts/ci.sh)
+HOST_LANES_CI = {
+    "sharded": {"KCP_BENCH_SHARD_FLEETS": "1,2", "KCP_BENCH_SHARD_SECONDS": "1.5",
+                "KCP_BENCH_SHARD_CLUSTERS": "16", "KCP_BENCH_SHARD_EVENTS": "12"},
+    "smartclient": {"KCP_BENCH_SMART_SECONDS": "1.5", "KCP_BENCH_SMART_CLUSTERS": "8"},
+    "elastic": {"KCP_BENCH_ELASTIC_SECONDS": "0.8", "KCP_BENCH_ELASTIC_CLUSTERS": "16"},
+}
+
+
+def host_lanes_phase(card: str) -> None:
+    """15. The sharded fleet's bench lanes at ``scripts/ci.sh``'s shapes,
+    each held to that script's gates, unchanged: ``--sharded`` (2-shard
+    capacity >= 1.6x one, a terminal 410 on the merged watch, fail-fast
+    under 1,000 ms, 0 lost after catch-up), ``--smartclient`` (direct /
+    routed capacity >= 1.5x, bytes equal, direct requests made, the
+    scatter wire identical with spans written, the drill 0 lost, 0 errors
+    surfaced, at least one fallback, ring epoch >= 2) and ``--elastic``
+    (>= 1.2x, 0 lost, 0 errors, clusters and records migrated, no shard
+    idle after). No server runs controllers: these are the host path's
+    numbers on this machine's CPU. Then a ``kcp start`` shard child as the
+    lanes start it and a ``--shard-loadgen`` child against it, each
+    reporting as it exits that it loaded no JAX or JAX-package module."""
+    from kcp_tpu_torch import bench
+
+    os.environ.pop("KCP_FAULTS", None)
+    for env in HOST_LANES_CI.values():
+        os.environ.update(env)
+    t0 = time.perf_counter()
+    r = bench.sharded_bench()
+    sb = r["sharded_bench"]
+    kill = sb["kill"]
+    cap = sb["capacity_speedup"]["2"]
+    if not (cap >= 1.6 and kill["watch_terminal_410"] and kill["failfast_ms"] < 1000
+            and kill["lost_after_catchup"] == 0):
+        fail(f"--sharded gates: {json.dumps(r)}")
+    print(f"--sharded: capacity {cap}x at 2 shards (floor 1.6; concurrent "
+          f"{sb['concurrent_speedup']['2']}x on {sb['host_cpus']} CPUs; fleets "
+          f"{json.dumps(sb['fleets'])}); router relay {sb['router']['relay_per_s']}/s, "
+          f"merged list p50 {sb['router']['list_p50_ms']} ms, watch latency p50 "
+          f"{sb['router']['watch_lat_p50_ms']} p99 {sb['router']['watch_lat_p99_ms']} ms; "
+          f"kill: 410 in {kill['watch_410_ms']} ms, fail-fast {kill['failfast_ms']} ms "
+          f"(limit 1000), {kill['acked_writes']} acked / {kill['lost_after_catchup']} lost; "
+          f"{time.perf_counter() - t0:.1f} s (host path) [{card}]")
+    t0 = time.perf_counter()
+    r = bench.smartclient_bench()
+    sb = r["smartclient_bench"]
+    ab, wire, drill = sb["ab"], sb["wire"], sb["ring_change_drill"]
+    if not (r["value"] >= 1.5 and ab["bytes_equal"] and ab["direct_requests"] > 0
+            and wire["identical"] and wire["spans_written"] > 0
+            and drill["lost_after_move"] == 0 and drill["errors_surfaced"] == 0
+            and drill["fallbacks"] >= 1 and drill["ring_epoch_after"] >= 2):
+        fail(f"--smartclient gates: {json.dumps(r)}")
+    print(f"--smartclient: direct/routed capacity {r['value']}x (floor 1.5; concurrent "
+          f"{ab['concurrent_speedup']}x; routed {ab['routed_per_s']}/s p50 "
+          f"{ab['routed_p50_ms']} p99 {ab['routed_p99_ms']} ms, direct {ab['direct_per_s']}/s "
+          f"p50 {ab['direct_p50_ms']} p99 {ab['direct_p99_ms']} ms, per shard "
+          f"{json.dumps(ab['per_shard'])}); bytes equal; wire identical, {wire['spans_written']} "
+          f"spans, scatter {wire['scatter_ms']} ms / join {wire['join_ms']} ms; drill "
+          f"{drill['acked_writes']} acked / {drill['lost_after_move']} lost, "
+          f"{drill['errors_surfaced']} errors, {drill['fallbacks']} fallbacks, epoch "
+          f"{drill['ring_epoch_after']}; {time.perf_counter() - t0:.1f} s (host path) [{card}]")
+    t0 = time.perf_counter()
+    r = bench.elastic_bench()
+    eb = r["elastic_bench"]
+    mv = eb["during_move"]
+    if not (r["value"] >= 1.2 and mv["lost_after_move"] == 0 and mv["errors_surfaced"] == 0
+            and mv["migrated_clusters"] >= 1 and mv["migration_records"] >= 1
+            and len(eb["per_shard_after"]) == eb["shards_after"]):
+        fail(f"--elastic gates: {json.dumps(r)}")
+    print(f"--elastic: capacity {r['value']}x {eb['shards_before']} -> {eb['shards_after']} "
+          f"shards (floor 1.2; {eb['capacity_before_per_s']} -> {eb['capacity_after_per_s']}/s); "
+          f"move {mv['move_seconds']} s, {mv['acked_writes']} acked / {mv['lost_after_move']} "
+          f"lost, {mv['errors_surfaced']} errors, {mv['migrated_clusters']} clusters / "
+          f"{mv['migration_records']} records migrated, {mv['fenced_write_503s']} fence 503s, "
+          f"writes p50 {mv['write_p50_ms']} p99 {mv['write_p99_ms']} ms, epoch "
+          f"{mv['ring_epoch_after']}; {time.perf_counter() - t0:.1f} s (host path) [{card}]")
+    for env in HOST_LANES_CI.values():
+        for k in env:
+            os.environ.pop(k, None)
+
+    shard = _child("kcp_tpu_torch.cli.kcp", "start", "--no-install-controllers", "--no-tls",
+                   "--syncer-mode", "none", "--in-memory", "--listen-port", "0")
+    procs = {"kcp start shard": shard}
+    try:
+        url = _first_line(shard, "kcp start shard")
+        procs["--shard-loadgen"] = loadgen = _child(
+            "kcp_tpu_torch.bench", "--shard-loadgen", stdin=subprocess.PIPE, env_extra={
+                "KCP_LG_SPEC": f"s0={url}", "KCP_LG_CLUSTERS": "t0,t1",
+                "KCP_LG_SECONDS": "0.5", "KCP_LG_PREFIX": "iso"})
+        if loadgen.stdout.readline().strip() != "ready":
+            fail(f"--shard-loadgen: no ready line; stderr: {loadgen.stderr.read()[-2000:]}")
+        loadgen.stdin.write("go\n")
+        loadgen.stdin.flush()
+        writes = json.loads(loadgen.stdout.readline())["writes"]
+    finally:
+        shard.send_signal(signal.SIGTERM)
+        reports = {}
+        for name, p in procs.items():
+            try:
+                out, err = p.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            line = [x for x in out.splitlines() if x.startswith("EXIT ")]
+            reports[name] = (p.returncode, json.loads(line[-1][5:]) if line else None, err)
+    for name, (rc, report, err) in reports.items():
+        if rc != 0 or report is None or report["loaded"]:
+            fail(f"{name}: exit {rc}, report {report}; stderr: {err[-2000:]}")
+    print(f"--sharded's children: a kcp start shard and a --shard-loadgen writer ({writes} "
+          f"writes) exited 0 with no jax/jaxlib/kcp_tpu module loaded [{card}]")
+
+
 def main() -> None:
     import torch
 
@@ -1649,9 +1926,23 @@ def main() -> None:
     gauntlet_phase(torch, card)
     print(f"heap: phase 13 had {gcs.since(mark)}")
 
-    # ---- 3, 3b: the kernels' device times; 4, 4b: no index_add_ in either
-    #          step (profiled, so after the main path's readings)
+    # ---- 14. the --suite lane on the card: BASELINE configs 2-4, the kernel
+    #           against torch.compile of its plain version (host clock and
+    #           events, before the profiler too; device times after it)
+    compiled_timed = []
+    suite_launches = suite_phase(torch, dev, card, timed, compiled_timed)
+
+    # ---- 15. the sharded fleet's lanes at the reference CI's shapes and
+    #           gates (the host path: no server runs controllers)
+    mark = len(gcs.pauses_ms)
+    host_lanes_phase(card)
+    print(f"heap: phase 15 had {gcs.since(mark)}")
+
+    # ---- 3, 3b, 14: the kernels' device times and 14's compiled
+    #          compositions'; 4, 4b: no index_add_ in either step (profiled,
+    #          so after the main path's readings)
     device_times(timed, card)
+    device_times(compiled_timed, card, kernel=None)
     assert_no_index_add(card_step, "step")
     assert_no_index_add(sharded_step, "sharded step")
     print("step, sharded step: no index_add_ (profiler, CPU activity)")
@@ -1685,7 +1976,7 @@ def main() -> None:
                   source="kcp_tpu_torch/csrc/decide_match.cu",
                   replaces="kcp_tpu/ops/pallas_kernels.py:129",
                   launches=(launches + front_launches + fleet_launches + sharded_launches
-                            + scenario_launches + fleet_ab_launches),
+                            + scenario_launches + fleet_ab_launches + suite_launches),
                   library_ms=None)
     record_sharded.update(name="decide_and_match_sharded", route="cuda",
                           source="kcp_tpu_torch/csrc/decide_match.cu",

@@ -15,13 +15,17 @@ client (``client/smart.py``), runs the sharded front door
 (``demo.sharded_front_door_load``) and a ``crud-churn`` scenario through
 the scenario harness (``scenarios/``) at a tiny size, all in a fresh
 interpreter (``-I``: no user site, no PYTHONPATH hooks) and inspects its
-``sys.modules``. A static scan of the port's sources and of
-``chip_smoke.py`` backs it up for code the loop does not reach.
+``sys.modules``. The bench's sharded lanes start children of their own:
+a ``kcp start`` shard and a ``--shard-loadgen`` writer run the same way
+through a wrapper that reports their modules as they exit. A static scan
+of the port's sources and of ``chip_smoke.py`` backs it up for code the
+loop does not reach.
 """
 
 import ast
 import json
 import os
+import signal
 import subprocess
 import sys
 
@@ -151,6 +155,61 @@ def test_port_closed_loop_loads_no_jax_and_no_reference_module():
     # the controller's queue is the native fair queue when the repo's
     # library builds, else the plain one: either is the port's own class
     assert res["queue"] in ("FairWorkQueue", "WorkQueue")
+
+
+# runs a module of the port as ``python -m`` would and, as it exits,
+# prints the JAX and JAX-package modules it loaded
+_WRAPPED = r"""
+import atexit, json, runpy, sys
+sys.path.insert(0, REPO)
+atexit.register(lambda: print("EXIT " + json.dumps(sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kcp_tpu"))), flush=True))
+sys.argv[0] = MODULE
+runpy.run_module(MODULE, run_name="__main__", alter_sys=True)
+"""
+
+
+def _wrapped(module: str, *args: str, env_extra: dict | None = None):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(env_extra or {})
+    code = _WRAPPED.replace("REPO", repr(REPO)).replace("MODULE", repr(module))
+    return subprocess.Popen([sys.executable, "-I", "-c", code, *args], env=env, cwd=REPO,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _exit_report(proc) -> list:
+    out, err = proc.communicate(timeout=60)
+    lines = [x for x in out.splitlines() if x.startswith("EXIT ")]
+    assert proc.returncode == 0 and lines, f"rc {proc.returncode}: {err[-3000:]}"
+    return json.loads(lines[-1][5:])
+
+
+def test_sharded_lanes_children_load_no_jax_and_no_reference_module():
+    """The children of ``--sharded``: a ``kcp start`` shard as the lanes
+    spawn it (``scenarios.topology.spawn_server``'s arguments) and a
+    ``--shard-loadgen`` writer against it (``bench.LOADGEN_ARGV``)."""
+    from kcp_tpu_torch import bench
+
+    assert bench.LOADGEN_ARGV[1:] == ["-m", "kcp_tpu_torch.bench", "--shard-loadgen"]
+    shard = _wrapped("kcp_tpu_torch.cli.kcp", "start", "--no-install-controllers",
+                     "--no-tls", "--syncer-mode", "none", "--in-memory", "--listen-port", "0")
+    try:
+        line = shard.stdout.readline()
+        assert line.startswith("kcp-tpu serving at "), line + shard.stderr.read()[-3000:]
+        url = line.split()[-1]
+        loadgen = _wrapped("kcp_tpu_torch.bench", "--shard-loadgen", env_extra={
+            "KCP_LG_SPEC": f"s0={url}", "KCP_LG_CLUSTERS": "t0,t1",
+            "KCP_LG_SECONDS": "0.2", "KCP_LG_PREFIX": "iso"})
+        assert loadgen.stdout.readline().strip() == "ready"
+        loadgen.stdin.write("go\n")
+        loadgen.stdin.flush()
+        writes = json.loads(loadgen.stdout.readline())["writes"]
+        assert writes > 0
+        assert _exit_report(loadgen) == []
+    finally:
+        shard.send_signal(signal.SIGTERM)
+    assert _exit_report(shard) == []
 
 
 def _sources():
