@@ -171,13 +171,20 @@ Phases, each fatal on failure:
    ``--smartclient`` and ``--elastic`` (2 -> 4 shards live); no server
    runs controllers, so these are host-path numbers on this machine's
    CPU; then a shard child and a ``--shard-loadgen`` child that load no
-   JAX or JAX-package module.
+   torch, JAX or JAX-package module; the shard's seconds to serve and the
+   phase's seconds;
+16. the store, encode, admission, replication and write-path lanes at
+   ``scripts/ci.sh``'s shapes, held to its gates: ``--store``,
+   ``--encode``, ``--admission``, ``--replica``, ``--consistent`` and
+   ``--writes``, each a ``python -m kcp_tpu_torch.bench`` child that must
+   load no torch, JAX or JAX-package module; host-path numbers on this
+   machine's CPU, one line per lane with its seconds.
 
 Every full (generation-2) garbage collection is timed, and phases 7-10,
 11, each mode of 12, 13 and 15 print theirs. Phase 11 runs with the heap
 the earlier phases left collected once and frozen (its time and size
 printed), so that full collections during it scan only what it
-allocates; the heap is unfrozen after it. Phases 7 to 15 run right
+allocates; the heap is unfrozen after it. Phases 7 to 16 run right
 after 5b, before the profiler of 5c, so that their host-clock
 readings, like those of 5 and 5b, follow no profiler session (phase
 8's own ``/debug/trace`` calls come after its readings;
@@ -237,14 +244,15 @@ SHARDS, SHARDED_ROOTS = 4, 16
 # phase 8b: the modules a child binary must not have loaded as it exits
 FORBIDDEN = ("jax", "jaxlib", "kcp_tpu")
 # phase 8b: runs a binary unchanged and, as it exits, prints the JAX and
-# JAX-package modules it loaded and the kernel's launch count
+# JAX-package modules it loaded, whether it loaded torch, and the kernel's
+# launch count
 WRAPPER = (
     "import atexit, json, runpy, sys\n"
     "def report():\n"
     "    ck = sys.modules.get('kcp_tpu_torch.ops.cuda_kernels')\n"
     "    print('EXIT ' + json.dumps({'loaded': sorted(m for m in sys.modules\n"
-    "          if m.split('.')[0] in %r), 'launches': ck.decide_and_match.launches\n"
-    "          if ck else 0}), flush=True)\n"
+    "          if m.split('.')[0] in %r), 'torch': 'torch' in sys.modules,\n"
+    "          'launches': ck.decide_and_match.launches if ck else 0}), flush=True)\n"
     "atexit.register(report)\n"
     "sys.argv[0] = %r\n"
     "runpy.run_module(%r, run_name='__main__')\n")
@@ -920,15 +928,55 @@ def front_door_phase(torch, card: str) -> int:
     return launches
 
 
-def _child(module: str, *args: str, env_extra: dict | None = None, stdin=None):
-    """A binary of the port as a child process, through ``WRAPPER``."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (os.getcwd(), os.environ.get("PYTHONPATH", "")) if p),
-        **(env_extra or {}))
+def _child(module: str, *args: str, env_extra: dict | None = None, stdin=None,
+           inherit_kcp: bool = True):
+    """A binary of the port as a child process, through ``WRAPPER``; with
+    ``inherit_kcp`` false it sees none of this process's ``KCP_*``
+    settings, only ``env_extra``'s."""
+    env = {k: v for k, v in os.environ.items() if inherit_kcp or not k.startswith("KCP_")}
+    env.update(env_extra or {}, PYTHONPATH=os.pathsep.join(
+        p for p in (os.getcwd(), os.environ.get("PYTHONPATH", "")) if p))
     env.pop("KCP_DEVICE", None)  # no --device: each uses the card
     code = WRAPPER % (FORBIDDEN, module.rsplit(".", 1)[-1], module)
     return subprocess.Popen([sys.executable, "-c", code, *args], env=env, stdin=stdin,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _exit_report(proc, timeout: float = 60.0):
+    """Wait for a ``WRAPPER`` child: (exit code, its EXIT report or None,
+    its stdout, its stderr). Both pipes are read through their file objects, in
+    threads while the child runs down: a ``readline()`` may already have
+    read the EXIT line ahead into the object's buffer, where
+    ``communicate()``, which reads the pipe itself, would not see it."""
+    import threading
+
+    got: dict[str, str] = {}
+    readers = [threading.Thread(target=lambda k=k, f=f: got.__setitem__(k, f.read()),
+                                daemon=True)
+               for k, f in (("out", proc.stdout), ("err", proc.stderr))]
+    for t in readers:
+        t.start()
+    if proc.stdin is not None:
+        proc.stdin.close()
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    for t in readers:
+        t.join(timeout)
+    line = [x for x in got.get("out", "").splitlines() if x.startswith("EXIT ")]
+    return (proc.returncode, json.loads(line[-1][5:]) if line else None, got.get("out", ""),
+            got.get("err", ""))
+
+
+def _check_exits(reports: dict, torch_ok: bool) -> None:
+    """Fail unless every ``WRAPPER`` child in ``reports`` (name ->
+    :func:`_exit_report`) exited 0 with its EXIT report, no JAX or
+    JAX-package module loaded and, unless ``torch_ok``, no torch."""
+    for name, (rc, report, _out, err) in reports.items():
+        if rc != 0 or report is None or report["loaded"] or (report["torch"] and not torch_ok):
+            fail(f"{name}: exit {rc}, report {report}; stderr: {err[-2000:]}")
 
 
 def _first_line(proc, what: str, timeout: float = 120.0) -> str:
@@ -1064,20 +1112,8 @@ def binaries_phase(card: str) -> None:
         for p in procs.values():
             if p.poll() is None:
                 p.send_signal(signal.SIGTERM)
-        exits = {}
-        for name, p in procs.items():
-            try:
-                out, err = p.communicate(timeout=60)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                out, err = p.communicate()
-            line = [x for x in out.splitlines() if x.startswith("EXIT ")]
-            exits[name] = (p.returncode, json.loads(line[-1][5:]) if line else None, err)
-    for name, (rc, report, err) in exits.items():
-        if rc != 0 or report is None:
-            fail(f"{name}: exit {rc}, report {report}; stderr: {err[-2000:]}")
-        if report["loaded"]:
-            fail(f"{name} loaded {report['loaded']}")
+        exits = {name: _exit_report(p) for name, p in procs.items()}
+    _check_exits(exits, torch_ok=True)
     if exits["syncer"][1]["launches"] == 0:
         fail("syncer --backend fused: decide_and_match never launched in the child")
     print(f"binaries: kcp start with controllers served create/get/wildcard list/readyz "
@@ -1089,7 +1125,8 @@ def binaries_phase(card: str) -> None:
           f"create 201, ring-stamped direct create 201 on the owner s{owner} and 410 with "
           f"X-Kcp-Ring-Epoch 1 on s{1 - owner}, wildcard list through the router "
           f"{merged}; all {len(exits)} children exited 0 on SIGTERM with no "
-          f"jax/jaxlib/kcp_tpu module loaded [{card}]")
+          f"jax/jaxlib/kcp_tpu module loaded; torch loaded by "
+          f"{sorted(n for n, (_rc, r, _o, _e) in exits.items() if r['torch'])} [{card}]")
 
 
 def solver_phase(torch, dev, card: str):
@@ -1757,11 +1794,13 @@ def host_lanes_phase(card: str) -> None:
         for k in env:
             os.environ.pop(k, None)
 
+    t0 = time.perf_counter()
     shard = _child("kcp_tpu_torch.cli.kcp", "start", "--no-install-controllers", "--no-tls",
                    "--syncer-mode", "none", "--in-memory", "--listen-port", "0")
     procs = {"kcp start shard": shard}
     try:
         url = _first_line(shard, "kcp start shard")
+        serving_s = time.perf_counter() - t0
         procs["--shard-loadgen"] = loadgen = _child(
             "kcp_tpu_torch.bench", "--shard-loadgen", stdin=subprocess.PIPE, env_extra={
                 "KCP_LG_SPEC": f"s0={url}", "KCP_LG_CLUSTERS": "t0,t1",
@@ -1773,20 +1812,132 @@ def host_lanes_phase(card: str) -> None:
         writes = json.loads(loadgen.stdout.readline())["writes"]
     finally:
         shard.send_signal(signal.SIGTERM)
-        reports = {}
-        for name, p in procs.items():
-            try:
-                out, err = p.communicate(timeout=60)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                out, err = p.communicate()
-            line = [x for x in out.splitlines() if x.startswith("EXIT ")]
-            reports[name] = (p.returncode, json.loads(line[-1][5:]) if line else None, err)
-    for name, (rc, report, err) in reports.items():
-        if rc != 0 or report is None or report["loaded"]:
-            fail(f"{name}: exit {rc}, report {report}; stderr: {err[-2000:]}")
-    print(f"--sharded's children: a kcp start shard and a --shard-loadgen writer ({writes} "
-          f"writes) exited 0 with no jax/jaxlib/kcp_tpu module loaded [{card}]")
+        reports = {name: _exit_report(p) for name, p in procs.items()}
+    _check_exits(reports, torch_ok=False)
+    print(f"--sharded's children: a kcp start shard (serving {serving_s:.2f} s after its "
+          f"spawn) and a --shard-loadgen writer ({writes} writes) exited 0 with no torch, "
+          f"jax, jaxlib or kcp_tpu module loaded [{card}]")
+
+
+# phase 16: the reference CI's shapes of the store, encode, admission,
+# replication and write-path lanes (scripts/ci.sh)
+STORE_LANES_CI = {
+    "store": {"KCP_BENCH_STORE_OBJECTS": "10000", "KCP_BENCH_STORE_MUTS": "1500"},
+    "encode": {"KCP_BENCH_ENCODE_OBJECTS": "10000", "KCP_BENCH_ENCODE_MUTS": "300"},
+    "admission": {"KCP_BENCH_ADM_WRITES": "3000", "KCP_BENCH_ADM_TENANTS": "40",
+                  "KCP_BENCH_ADM_STORM_S": "2"},
+    "replica": {"KCP_BENCH_REPL_OBJECTS": "500", "KCP_BENCH_REPL_SECONDS": "0.8",
+                "KCP_BENCH_REPL_LAG_WRITES": "60", "KCP_BENCH_REPL_DRILL_WRITES": "40"},
+    "consistent": {"KCP_BENCH_CONS_OBJECTS": "500", "KCP_BENCH_CONS_SECONDS": "0.8",
+                   "KCP_BENCH_CONS_LAG_WRITES": "60", "KCP_BENCH_CONS_RYWR_STEPS": "60"},
+    "writes": {"KCP_BENCH_WRITES_SECONDS": "0.6", "KCP_BENCH_WRITES_CONC": "1,64",
+               "KCP_BENCH_WRITES_EQ_OPS": "150", "KCP_BENCH_WRITES_STORE_OPS": "120"},
+}
+
+
+def _lane_child(lane: str) -> tuple[dict, float]:
+    """``python -m kcp_tpu_torch.bench --<lane>`` as a child process (as
+    ``scripts/ci.sh`` runs the reference's), through ``WRAPPER``, with the
+    lane's knobs and none of the earlier phases' ``KCP_*`` settings: the
+    lane's JSON line and its seconds. The child must exit 0 with no torch,
+    JAX or JAX-package module loaded."""
+    t0 = time.perf_counter()
+    proc = _child("kcp_tpu_torch.bench", f"--{lane}", env_extra=STORE_LANES_CI[lane],
+                  inherit_kcp=False)
+    reports = {f"--{lane}": _exit_report(proc, timeout=600)}
+    seconds = time.perf_counter() - t0
+    _check_exits(reports, torch_ok=False)
+    out = reports[f"--{lane}"][2]
+    lines = [x for x in out.splitlines() if x.startswith("{")]
+    if not lines:
+        fail(f"--{lane}: no JSON line; stdout {out[-2000:]}")
+    return json.loads(lines[-1]), seconds
+
+
+def store_lanes_phase(card: str) -> None:
+    """16. The store, encode, admission, replication and write-path lanes
+    at ``scripts/ci.sh``'s shapes, each a ``python -m kcp_tpu_torch.bench``
+    child held to that script's gates, unchanged: ``--store`` (watch
+    events equal, >= 4x), ``--encode`` (bytes and events equal, >= 3x),
+    ``--admission`` (overhead < 5%, no quiet tenant rejected, quiet p99
+    ratio <= 2, the flood sees a 429 with Retry-After and fewer than half
+    its writes pass), ``--replica`` (bytes equal, >= 1.5x at 2 replicas,
+    0 lost across the promotion, the standby primary with epoch >= 1),
+    ``--consistent`` (bytes equal, 0 stale, replica-local share >= 0.8,
+    >= 1.5x) and ``--writes`` (>= 2x at 64 writers, state and RV sequences
+    equal, the kill-mid-window drill with 0 lost and commit windows and
+    batched acks counted). No lane runs controllers, and no child loads
+    torch: these are host-path numbers on this machine's CPU."""
+    r, sec = _lane_child("store")
+    sb = r["store_bench"]
+    if not (sb["events_equal"] and r["value"] >= 4.0):
+        fail(f"--store gates: {json.dumps(r)}")
+    print(f"--store: {r['value']}x combined (floor 4; list {sb['list_speedup']}x, fan-out "
+          f"{sb['fanout_speedup']}x) at {sb['objects']} objects x {sb['watches']} watches, "
+          f"{sb['indexed']['events']} events equal; {sec:.1f} s (host path) [{card}]")
+    r, sec = _lane_child("encode")
+    eb = r["encode_bench"]
+    if not (eb["bytes_equal"] and eb["events_equal"] and r["value"] >= 3.0):
+        fail(f"--encode gates: {json.dumps(r)}")
+    print(f"--encode: {r['value']}x combined (floor 3; list {eb['list_speedup']}x, churned "
+          f"list {eb['churn_list_speedup']}x, fan-out {eb['fanout_speedup']}x, fan-out "
+          f"encode {eb['fanout_encode_speedup']}x) at {eb['objects']} objects x "
+          f"{eb['watchers']} watchers; bytes equal (sha256 {eb['cached']['sha256'][:16]}), "
+          f"{eb['cached']['events']} events equal; {sec:.1f} s (host path) [{card}]")
+    r, sec = _lane_child("admission")
+    happy, st = r["admission_bench"]["happy"], r["admission_bench"]["storm"]
+    if not (r["value"] < 5.0 and st["quiet_rejected"] == 0 and st["quiet_p99_ratio"] <= 2.0
+            and st["flood_429"] > 0 and st["flood_retry_after_seen"]
+            and st["flood_ok"] < st["flood_sent"] // 2):
+        fail(f"--admission gates: {json.dumps(r)}")
+    print(f"--admission: overhead {r['value']}% over HTTP (limit 5; median "
+          f"{happy['http_med_off_us']} -> {happy['http_med_on_us']} us, direct "
+          f"{happy['direct_overhead_pct']}%); storm of {st['tenants']} tenants: quiet p99 "
+          f"{st['baseline_quiet_p99_ms']} -> {st['storm_quiet_p99_ms']} ms, ratio "
+          f"{st['quiet_p99_ratio']} (limit 2), {st['quiet_ok']} quiet writes / "
+          f"{st['quiet_rejected']} rejected, flood {st['flood_429']} of {st['flood_sent']} "
+          f"answered 429 with Retry-After, {st['flood_ok']} passed; {sec:.1f} s (host path) "
+          f"[{card}]")
+    r, sec = _lane_child("replica")
+    rb = r["replica_bench"]
+    kill = rb["kill"]
+    if not (rb["bytes_equal"] and r["value"] >= 1.5 and kill["lost_after_promotion"] == 0
+            and kill["promoted_role"] == "primary" and kill["epoch"] >= 1):
+        fail(f"--replica gates: {json.dumps(r)}")
+    print(f"--replica: read capacity {r['value']}x at 2 replicas (floor 1.5; "
+          f"{json.dumps(rb['read_capacity_rps'])} reads/s), bytes equal, lag p50 "
+          f"{rb['lag']['p50_ms']} p99 {rb['lag']['p99_ms']} ms; kill: {kill['acked_writes']} "
+          f"acked / {kill['lost_after_promotion']} lost, promoted to {kill['promoted_role']} "
+          f"in {kill['promote_ms']} ms, epoch {kill['epoch']}; {sec:.1f} s (host path) "
+          f"[{card}]")
+    r, sec = _lane_child("consistent")
+    cb = r["consistent_bench"]
+    rw, wf = cb["read_your_writes"], cb["wait_for_frontier"]
+    if not (cb["bytes_equal"] and rw["stale"] == 0 and rw["replica_local_share"] >= 0.8
+            and r["value"] >= 1.5):
+        fail(f"--consistent gates: {json.dumps(r)}")
+    print(f"--consistent: consistent-read capacity {r['value']}x at {cb['replicas']} "
+          f"replicas (floor 1.5; {json.dumps(cb['capacity_rps'])}), bytes equal; "
+          f"read-your-writes {rw['reads'] - rw['stale']}/{rw['reads']} fresh, replica-local "
+          f"{rw['replica_local_share']} (floor 0.8), {rw['fallbacks']} fallbacks; frontier "
+          f"wait p50 {wf['p50_ms']} p99 {wf['p99_ms']} ms under repl.ship 5 ms; {sec:.1f} s "
+          f"(host path) [{card}]")
+    r, sec = _lane_child("writes")
+    wb = r["writes_bench"]
+    drill = wb["kill_drill"]
+    if not (r["value"] >= 2.0 and wb["state_equal"] and wb["rv_sequence_equal"]
+            and drill["ok"] and drill["lost_after_kill"] == 0
+            and drill["commit_windows"] > 0 and drill["acks_batched"] > 0):
+        fail(f"--writes gates: {json.dumps(r)}")
+    wp = wb["write_path"]
+    print(f"--writes: grouped/serial write path {r['value']}x at 64 writers (floor 2; "
+          f"{wp['serial']['64']['rps']} -> {wp['grouped']['64']['rps']} writes/s, "
+          f"{wb['wal_sync']}), HTTP end to end {wb['end_to_end_http']['speedup_at_top']}x; "
+          f"p99 at 1 writer {wb['p99_1_writer_ms']['serial']} -> "
+          f"{wb['p99_1_writer_ms']['grouped']} ms; state and RV sequences equal; drill: "
+          f"{drill['acked_writes']} acked / {drill['lost_after_kill']} lost, "
+          f"{drill['commit_windows']:.0f} commit windows, {drill['acks_batched']:.0f} batched "
+          f"acks; {sec:.1f} s (host path) [{card}]")
 
 
 def main() -> None:
@@ -1935,8 +2086,16 @@ def main() -> None:
     # ---- 15. the sharded fleet's lanes at the reference CI's shapes and
     #           gates (the host path: no server runs controllers)
     mark = len(gcs.pauses_ms)
+    t0 = time.perf_counter()
     host_lanes_phase(card)
-    print(f"heap: phase 15 had {gcs.since(mark)}")
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s; heap: phase 15 had {gcs.since(mark)}")
+
+    # ---- 16. the store, encode, admission, replication and write-path lanes
+    #           at the reference CI's shapes and gates, each in a child
+    #           process (the host path: no server runs controllers)
+    t0 = time.perf_counter()
+    store_lanes_phase(card)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
     # ---- 3, 3b, 14: the kernels' device times and 14's compiled
     #          compositions'; 4, 4b: no index_add_ in either step (profiled,

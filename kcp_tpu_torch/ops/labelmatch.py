@@ -15,7 +15,8 @@ Host side (the reference's, copied): :func:`compile_selector` /
 :func:`try_compile_selector` build the [R, V] selector shape, and
 :func:`match_batch_np` / :func:`fanout_match_np` are the numpy twins the
 store's batched watch fan-out runs per micro-batch; :func:`match_host` is
-the plain oracle.
+the plain oracle. Importing the module loads no torch, so a serve-only
+process's selector watches stay torch-free.
 """
 
 
@@ -24,7 +25,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from ..store.selectors import LabelSelector
 from .hashing import hash_key, hash_pair
@@ -119,6 +119,8 @@ def match_batch(
     valid: torch.Tensor,  # bool [R]
 ) -> torch.Tensor:
     """bool [N]: does each object match the selector?"""
+    import torch  # here, not at import: the store's host fan-out needs none
+
     table = torch.where(use_key[:, None, None], key_hashes[None], pair_hashes[None])  # [R,N,L]
     alt_valid = alts != 0  # [R,V]
     eq = table[:, :, :, None] == alts[:, None, None, :]  # [R,N,L,V]

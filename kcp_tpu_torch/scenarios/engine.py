@@ -40,7 +40,6 @@ import time
 from .. import faults as faults_mod
 from ..server.rest import RestClient
 from ..utils import errors
-from ..utils.device import resolve_device
 from ..utils.trace import REGISTRY
 from .spec import ScenarioSpec
 from .topology import make_topology
@@ -639,6 +638,8 @@ def scenario_device(spec: ScenarioSpec, device=None) -> str | None:
     if not (spec.topology_args.get("controllers")
             or spec.workload == "placement"):
         return None
+    from ..utils.device import resolve_device
+
     return str(resolve_device(device))
 
 

@@ -19,8 +19,6 @@ from ..apis.scheme import Scheme, default_scheme
 from ..client import MultiClusterClient
 from ..physical import PhysicalRegistry
 from ..store import LogicalStore
-from ..parallel.mesh import mesh_on
-from ..utils.device import resolve_device
 from .handler import RestHandler, render_kubeconfig
 from .httpd import HttpServer
 
@@ -203,6 +201,12 @@ class Server:
             self._stop = asyncio.Event()
             return
         if self.install_controllers:
+            # torch loads here, with the controllers: a serve-only process
+            # (router, store frontend, --no-install-controllers) never
+            # imports it
+            from ..parallel.mesh import mesh_on
+            from ..utils.device import resolve_device
+
             if self.config.mesh:
                 self.mesh = mesh_on(self.config.mesh, self.config.device)
             self.device = resolve_device(self.config.device, self.mesh)

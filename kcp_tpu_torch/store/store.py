@@ -636,7 +636,7 @@ class LogicalStore:
         # alias — watch semantics stay byte-identical to _transform
         self._intern_pairs: dict = {}
         self._intern_keys: dict[str, int] = {}
-        self._labelmatch = None  # lazy ops.labelmatch module (pulls torch)
+        self._labelmatch = None  # lazy ops.labelmatch module
         # encode-once byte cache: id(snapshot) -> (snapshot, bytes). The
         # entry holds a strong ref to its snapshot, so a live id can
         # never be reused by a different object — presence implies

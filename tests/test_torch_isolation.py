@@ -17,7 +17,11 @@ the scenario harness (``scenarios/``) at a tiny size, all in a fresh
 interpreter (``-I``: no user site, no PYTHONPATH hooks) and inspects its
 ``sys.modules``. The bench's sharded lanes start children of their own:
 a ``kcp start`` shard and a ``--shard-loadgen`` writer run the same way
-through a wrapper that reports their modules as they exit. A static scan
+through a wrapper that reports their modules as they exit, torch among
+them: neither runs controllers, so neither loads torch. Each entry point
+of such a process imports without loading torch, and a server that does
+install controllers loads it and places its core on the device it was
+given (without a card and without a device it refuses to start). A static scan
 of the port's sources and of ``chip_smoke.py`` backs it up for code the
 loop does not reach.
 """
@@ -28,6 +32,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 
 import pytest
 
@@ -158,12 +163,13 @@ def test_port_closed_loop_loads_no_jax_and_no_reference_module():
 
 
 # runs a module of the port as ``python -m`` would and, as it exits,
-# prints the JAX and JAX-package modules it loaded
+# prints the torch, JAX and JAX-package modules it loaded
 _WRAPPED = r"""
 import atexit, json, runpy, sys
 sys.path.insert(0, REPO)
 atexit.register(lambda: print("EXIT " + json.dumps(sorted(
-    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kcp_tpu"))), flush=True))
+    m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib", "kcp_tpu"))),
+    flush=True))
 sys.argv[0] = MODULE
 runpy.run_module(MODULE, run_name="__main__", alter_sys=True)
 """
@@ -179,9 +185,27 @@ def _wrapped(module: str, *args: str, env_extra: dict | None = None):
 
 
 def _exit_report(proc) -> list:
-    out, err = proc.communicate(timeout=60)
-    lines = [x for x in out.splitlines() if x.startswith("EXIT ")]
-    assert proc.returncode == 0 and lines, f"rc {proc.returncode}: {err[-3000:]}"
+    """The modules a wrapped child reports as it exits. Both pipes are read
+    through their file objects, in threads while the child runs down: a
+    ``readline()`` may already have read the EXIT line ahead into the
+    object's buffer, where ``communicate()``, which reads the pipe itself,
+    would not see it."""
+    got = {}
+    readers = [threading.Thread(target=lambda k=k, f=f: got.__setitem__(k, f.read()),
+                                daemon=True)
+               for k, f in (("out", proc.stdout), ("err", proc.stderr))]
+    for t in readers:
+        t.start()
+    proc.stdin.close()
+    try:
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        for t in readers:
+            t.join(60)
+    lines = [x for x in got.get("out", "").splitlines() if x.startswith("EXIT ")]
+    assert proc.returncode == 0 and lines, f"rc {proc.returncode}: {got.get('err', '')[-3000:]}"
     return json.loads(lines[-1][5:])
 
 
@@ -210,6 +234,65 @@ def test_sharded_lanes_children_load_no_jax_and_no_reference_module():
     finally:
         shard.send_signal(signal.SIGTERM)
     assert _exit_report(shard) == []
+
+
+# the entry points of processes that run no controllers: importing one
+# loads no torch, as importing the reference's counterpart loads no jax
+TORCH_FREE = ("kcp_tpu_torch.cli.kcp", "kcp_tpu_torch.server",
+              "kcp_tpu_torch.scenarios.topology", "kcp_tpu_torch.bench",
+              "kcp_tpu_torch.obs.__main__")
+
+
+@pytest.mark.parametrize("module", TORCH_FREE)
+def test_controller_less_entry_point_imports_no_torch(module):
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import {module}; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'kcp_tpu')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
+                          text=True, timeout=60, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]", f"{module} loaded {proc.stdout.strip()}"
+
+
+_CONTROLLERS = r"""
+import json, sys
+sys.path.insert(0, REPO)
+from kcp_tpu_torch.server import Config
+from kcp_tpu_torch.server.threaded import ServerThread
+
+before = "torch" in sys.modules
+with ServerThread(Config(durable=False, tls=False, device="cpu")) as st:
+    from kcp_tpu_torch.syncer.core import FusedCore
+
+    cores = st.call(lambda: [str(c.device) for c in FusedCore._instances.values()])
+    got = {"before": before, "after": "torch" in sys.modules,
+           "installed": st.server.install_controllers,
+           "device": str(st.server.device), "cores": cores}
+# no device named and no card: the server refuses to start (no CPU fallback)
+import torch
+
+if not torch.cuda.is_available():
+    try:
+        ServerThread(Config(durable=False, tls=False)).start()
+        got["no_card"] = "started"
+    except RuntimeError as err:
+        got["no_card"] = str(err.__cause__)
+print(json.dumps(got))
+"""
+
+
+def test_controller_installing_server_loads_torch_on_its_device():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-I", "-c", _CONTROLLERS.replace("REPO", repr(REPO))],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["installed"] and not got["before"] and got["after"], got
+    assert got["device"] == "cpu" and got["cores"] == ["cpu"], got
+    if "no_card" in got:
+        assert "runs on a CUDA card by default" in got["no_card"], got
 
 
 def _sources():
