@@ -52,11 +52,11 @@ Phases, each fatal on failure:
    ["deployments.apps"])`` and ``DeploymentSplitter``, all with
    ``device=None``, over 16 logical clusters that each register the same
    4 fake physical clusters (64 push syncers on one ``FusedCore``, a
-   ``FakeClusterAgent`` per physical cluster) and 256 root Deployments
+   ``FakeClusterAgent`` per physical cluster) and 128 root Deployments
    per logical cluster, seeded replicas in 1..100: every import
    Compatible and Available, every cluster Ready, every one of the
-   16,384 leaves downstream with the CPU ``split_replicas`` count, every
-   root's readyReplicas aggregated, all 4,096 roots through the fused
+   8,192 leaves downstream with the CPU ``split_replicas`` count, every
+   root's readyReplicas aggregated, all 2,048 roots through the fused
    placement lanes, ``decide_and_match`` launched, nothing quarantined;
    then, for the window from the first root to the last aggregated, the
    fleet ticks, the core's seconds in each tick phase, and the process's
@@ -115,7 +115,7 @@ Phases, each fatal on failure:
    the card each) behind a ``role="router"`` server
    (``kcp_tpu_torch.demo.sharded_front_door_load``): registrations
    routed through the router, a merged wildcard watch opened before the
-   first root, 16 roots per logical cluster POSTed direct by a
+   first root, 8 roots per logical cluster POSTed direct by a
    ``SmartRestClient`` (even logical clusters) or routed (odd ones);
    every leaf equal to the CPU split, each tenant's objects on its HRW
    shard only, every root aggregated through the router, the merged
@@ -168,23 +168,45 @@ Phases, each fatal on failure:
    fleet form; each shape's kernel, compiled and plain time and bound;
 15. the sharded fleet's lanes at ``scripts/ci.sh``'s shapes, held to its
    gates: ``--sharded`` (1 and 2 ``kcp start`` shard processes),
-   ``--smartclient`` and ``--elastic`` (2 -> 4 shards live); no server
-   runs controllers, so these are host-path numbers on this machine's
-   CPU; then a shard child and a ``--shard-loadgen`` child that load no
-   torch, JAX or JAX-package module; the shard's seconds to serve and the
-   phase's seconds;
+   ``--smartclient`` and ``--elastic`` (2 -> 4 shards live), each a
+   ``python -m kcp_tpu_torch.bench`` child that must load no torch, JAX or
+   JAX-package module; no server runs controllers, so these are host-path
+   numbers on this machine's CPU; then a shard child and a
+   ``--shard-loadgen`` child that load none either; the shard's seconds to
+   serve and the phase's seconds (before phase 15, the compile worker that
+   phase 14's ``torch.compile`` left is stopped);
 16. the store, encode, admission, replication and write-path lanes at
    ``scripts/ci.sh``'s shapes, held to its gates: ``--store``,
    ``--encode``, ``--admission``, ``--replica``, ``--consistent`` and
    ``--writes``, each a ``python -m kcp_tpu_torch.bench`` child that must
    load no torch, JAX or JAX-package module; host-path numbers on this
-   machine's CPU, one line per lane with its seconds.
+   machine's CPU, one line per lane with its seconds;
+17. the ``--watchers`` lane at ``scripts/ci.sh``'s shape, held to its
+   gates: 1,000 live watch streams over 10,000 objects in 20 clusters
+   against a ``--watchers-serve`` child (every stream established, RSS per
+   watcher and its soak growth, delivery p99), the coalesced against
+   per-batch flush A/B at 48 watchers (streams byte-identical, a 4x
+   reduction) and the evict drill; a child that must load no torch, then
+   a ``--watchers-serve`` child that must load none either;
+18. A7, the serving mesh across processes: two rank processes of one
+   ``torch.distributed`` group (gloo: one card holds no two NCCL ranks),
+   each holding its hosts block of a ``2x2x1`` mesh on the card, run three
+   seeded fleet ticks at 131,072 x 64 (an overflowing one among them),
+   their row shards launching ``decide_and_match``: both ranks' wires must
+   equal the one-process ``2x2x1`` run's byte for byte; each rank's
+   backend, step ms and launches.
+
+Before each lane of phases 15-17, the script's own load is read, and a line
+per lane prints it: the CPU count and this process's affinity,
+``/proc/loadavg``, this process's CPU seconds over the lane's window, its
+threads and live children, its full collections in the window and, for a
+lane run as a child, the child's own full collections and CPU seconds.
 
 Every full (generation-2) garbage collection is timed, and phases 7-10,
 11, each mode of 12, 13 and 15 print theirs. Phase 11 runs with the heap
 the earlier phases left collected once and frozen (its time and size
 printed), so that full collections during it scan only what it
-allocates; the heap is unfrozen after it. Phases 7 to 16 run right
+allocates; the heap is unfrozen after it. Phases 7 to 18 run right
 after 5b, before the profiler of 5c, so that their host-clock
 readings, like those of 5 and 5b, follow no profiler session (phase
 8's own ``/debug/trace`` calls come after its readings;
@@ -207,6 +229,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -224,7 +247,10 @@ ENGINE_OBJECTS = 16384  # phase 6 (cut from 131,072 for the time limit)
 ENGINE_NAMESPACES = 64
 # phase 7: logical clusters (cut from 10,000 for the time limit), fake
 # physical clusters per logical cluster, root Deployments per logical cluster
-PLANE_LOGICAL, PLANE_PHYSICAL, PLANE_ROOTS = 16, 4, 256
+# (cut from 256 to 128 for the time limit: with 256, phase 10 at 16 and
+# 10 s loops in phases 5 and 5b, the script took 389-419 s on the H100
+# machines and 614 s on one whose host ran about 1.5x slower)
+PLANE_LOGICAL, PLANE_PHYSICAL, PLANE_ROOTS = 16, 4, 128
 # phase 8: phase 7's layout, reached through kcp start's server over REST;
 # root Deployments per logical cluster cut from 256 to 32 for the run's
 # time limit (at 256 the POSTs alone took 103 s on the H100; 64 took 18 s,
@@ -239,23 +265,35 @@ FLEET_ROOTS = 64
 # reference's widest fleet in every sharded lane: --sharded runs 1/2/4,
 # --elastic 2 -> 4) and roots per logical cluster, cut from 64 for the
 # run's time limit (at 64 its POSTs took 56.7-90.8 s on the H100 machine
-# and the script 225.6-304.4 s)
-SHARDS, SHARDED_ROOTS = 4, 16
+# and the script 225.6-304.4 s), then from 16 to 8 (see phase 7's cut)
+SHARDS, SHARDED_ROOTS = 4, 8
 # phase 8b: the modules a child binary must not have loaded as it exits
 FORBIDDEN = ("jax", "jaxlib", "kcp_tpu")
-# phase 8b: runs a binary unchanged and, as it exits, prints the JAX and
-# JAX-package modules it loaded, whether it loaded torch, and the kernel's
-# launch count
+# phase 8b: runs a binary (a module, or a script given by its path) unchanged
+# and, as it exits, prints the JAX and JAX-package modules it loaded, whether
+# it loaded torch, the kernel's launch count, its full (generation-2) garbage
+# collections (count, ms in all, the longest) and its own CPU seconds
 WRAPPER = (
-    "import atexit, json, runpy, sys\n"
+    "import atexit, gc, json, os, runpy, sys, time\n"
+    "full, began = [], [0.0]\n"
+    "def timed(phase, info):\n"
+    "    if info['generation'] == 2:\n"
+    "        if phase == 'start':\n"
+    "            began[0] = time.perf_counter()\n"
+    "        else:\n"
+    "            full.append((time.perf_counter() - began[0]) * 1e3)\n"
+    "gc.callbacks.append(timed)\n"
     "def report():\n"
     "    ck = sys.modules.get('kcp_tpu_torch.ops.cuda_kernels')\n"
     "    print('EXIT ' + json.dumps({'loaded': sorted(m for m in sys.modules\n"
     "          if m.split('.')[0] in %r), 'torch': 'torch' in sys.modules,\n"
-    "          'launches': ck.decide_and_match.launches if ck else 0}), flush=True)\n"
+    "          'launches': ck.decide_and_match.launches if ck else 0,\n"
+    "          'full_collections': len(full), 'full_collection_ms': round(sum(full), 1),\n"
+    "          'longest_ms': round(max(full, default=0.0), 1),\n"
+    "          'cpu_s': round(sum(os.times()[:2]), 3)}), flush=True)\n"
     "atexit.register(report)\n"
     "sys.argv[0] = %r\n"
-    "runpy.run_module(%r, run_name='__main__')\n")
+    "(runpy.run_path if %r.endswith('.py') else runpy.run_module)(%r, run_name='__main__')\n")
 
 
 def fail(msg: str) -> None:
@@ -674,7 +712,7 @@ def sharded_step_phase(torch, dev, card: str, b: int = 131072, s: int = 64):
 
 
 def main_path_phase(core, torch, counter, per_tick: int, card: str, label: str,
-                    rows: int = 131072, seconds: float = 10.0) -> tuple[dict, int]:
+                    rows: int = 131072, seconds: float = 6.0) -> tuple[dict, int]:
     """5 / 5b. One closed churn loop through ``core``; the kernel's launch
     count (``counter.launches``, zeroed just before) must be ``per_tick``
     per fleet tick. Returns the loop's readings and the launches."""
@@ -937,7 +975,7 @@ def _child(module: str, *args: str, env_extra: dict | None = None, stdin=None,
     env.update(env_extra or {}, PYTHONPATH=os.pathsep.join(
         p for p in (os.getcwd(), os.environ.get("PYTHONPATH", "")) if p))
     env.pop("KCP_DEVICE", None)  # no --device: each uses the card
-    code = WRAPPER % (FORBIDDEN, module.rsplit(".", 1)[-1], module)
+    code = WRAPPER % (FORBIDDEN, module.rsplit(".", 1)[-1], module, module)
     return subprocess.Popen([sys.executable, "-c", code, *args], env=env, stdin=stdin,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
@@ -1723,7 +1761,7 @@ HOST_LANES_CI = {
 }
 
 
-def host_lanes_phase(card: str) -> None:
+def host_lanes_phase(card: str, gcs: "FullCollections") -> None:
     """15. The sharded fleet's bench lanes at ``scripts/ci.sh``'s shapes,
     each held to that script's gates, unchanged: ``--sharded`` (2-shard
     capacity >= 1.6x one, a terminal 410 on the merged watch, fail-fast
@@ -1732,17 +1770,14 @@ def host_lanes_phase(card: str) -> None:
     scatter wire identical with spans written, the drill 0 lost, 0 errors
     surfaced, at least one fallback, ring epoch >= 2) and ``--elastic``
     (>= 1.2x, 0 lost, 0 errors, clusters and records migrated, no shard
-    idle after). No server runs controllers: these are the host path's
-    numbers on this machine's CPU. Then a ``kcp start`` shard child as the
-    lanes start it and a ``--shard-loadgen`` child against it, each
-    reporting as it exits that it loaded no JAX or JAX-package module."""
-    from kcp_tpu_torch import bench
-
-    os.environ.pop("KCP_FAULTS", None)
-    for env in HOST_LANES_CI.values():
-        os.environ.update(env)
-    t0 = time.perf_counter()
-    r = bench.sharded_bench()
+    idle after). Each lane is a ``python -m kcp_tpu_torch.bench`` child, as
+    in phase 16 (in this process, the lanes shared the CPU with what the
+    earlier phases left running), and loads no torch. No server runs
+    controllers: these are the host path's numbers on this machine's CPU.
+    Then a ``kcp start`` shard child as the lanes start it and a
+    ``--shard-loadgen`` child against it, each reporting as it exits that
+    it loaded no JAX or JAX-package module."""
+    r, sec = _lane_child("sharded", gcs, card)
     sb = r["sharded_bench"]
     kill = sb["kill"]
     cap = sb["capacity_speedup"]["2"]
@@ -1756,9 +1791,8 @@ def host_lanes_phase(card: str) -> None:
           f"{sb['router']['watch_lat_p50_ms']} p99 {sb['router']['watch_lat_p99_ms']} ms; "
           f"kill: 410 in {kill['watch_410_ms']} ms, fail-fast {kill['failfast_ms']} ms "
           f"(limit 1000), {kill['acked_writes']} acked / {kill['lost_after_catchup']} lost; "
-          f"{time.perf_counter() - t0:.1f} s (host path) [{card}]")
-    t0 = time.perf_counter()
-    r = bench.smartclient_bench()
+          f"{sec:.1f} s (host path) [{card}]")
+    r, sec = _lane_child("smartclient", gcs, card)
     sb = r["smartclient_bench"]
     ab, wire, drill = sb["ab"], sb["wire"], sb["ring_change_drill"]
     if not (r["value"] >= 1.5 and ab["bytes_equal"] and ab["direct_requests"] > 0
@@ -1774,9 +1808,8 @@ def host_lanes_phase(card: str) -> None:
           f"spans, scatter {wire['scatter_ms']} ms / join {wire['join_ms']} ms; drill "
           f"{drill['acked_writes']} acked / {drill['lost_after_move']} lost, "
           f"{drill['errors_surfaced']} errors, {drill['fallbacks']} fallbacks, epoch "
-          f"{drill['ring_epoch_after']}; {time.perf_counter() - t0:.1f} s (host path) [{card}]")
-    t0 = time.perf_counter()
-    r = bench.elastic_bench()
+          f"{drill['ring_epoch_after']}; {sec:.1f} s (host path) [{card}]")
+    r, sec = _lane_child("elastic", gcs, card)
     eb = r["elastic_bench"]
     mv = eb["during_move"]
     if not (r["value"] >= 1.2 and mv["lost_after_move"] == 0 and mv["errors_surfaced"] == 0
@@ -1789,10 +1822,7 @@ def host_lanes_phase(card: str) -> None:
           f"lost, {mv['errors_surfaced']} errors, {mv['migrated_clusters']} clusters / "
           f"{mv['migration_records']} records migrated, {mv['fenced_write_503s']} fence 503s, "
           f"writes p50 {mv['write_p50_ms']} p99 {mv['write_p99_ms']} ms, epoch "
-          f"{mv['ring_epoch_after']}; {time.perf_counter() - t0:.1f} s (host path) [{card}]")
-    for env in HOST_LANES_CI.values():
-        for k in env:
-            os.environ.pop(k, None)
+          f"{mv['ring_epoch_after']}; {sec:.1f} s (host path) [{card}]")
 
     t0 = time.perf_counter()
     shard = _child("kcp_tpu_torch.cli.kcp", "start", "--no-install-controllers", "--no-tls",
@@ -1835,18 +1865,29 @@ STORE_LANES_CI = {
 }
 
 
-def _lane_child(lane: str) -> tuple[dict, float]:
+# phase 17: the reference CI's shape of the --watchers lane (scripts/ci.sh)
+WATCHERS_CI = {"KCP_BENCH_WATCHERS": "1000", "KCP_BENCH_WATCH_OBJECTS": "10000",
+               "KCP_BENCH_WATCH_CLUSTERS": "20", "KCP_BENCH_WATCH_MUTS": "400",
+               "KCP_BENCH_WATCH_AB": "48", "KCP_BENCH_WATCH_AB_MUTS": "300"}
+#: every lane that runs as a child, with its knobs
+LANES_CI = {**HOST_LANES_CI, **STORE_LANES_CI, "watchers": WATCHERS_CI}
+
+
+def _lane_child(lane: str, gcs: "FullCollections", card: str) -> tuple[dict, float]:
     """``python -m kcp_tpu_torch.bench --<lane>`` as a child process (as
     ``scripts/ci.sh`` runs the reference's), through ``WRAPPER``, with the
-    lane's knobs and none of the earlier phases' ``KCP_*`` settings: the
-    lane's JSON line and its seconds. The child must exit 0 with no torch,
-    JAX or JAX-package module loaded."""
+    lane's knobs (``LANES_CI``) and none of the earlier phases' ``KCP_*``
+    settings: the lane's JSON line and its seconds. The child must exit 0
+    with no torch, JAX or JAX-package module loaded. Prints the script's
+    own load over the lane's window (:func:`print_script_load`)."""
+    before = script_load(gcs)
     t0 = time.perf_counter()
-    proc = _child("kcp_tpu_torch.bench", f"--{lane}", env_extra=STORE_LANES_CI[lane],
+    proc = _child("kcp_tpu_torch.bench", f"--{lane}", env_extra=LANES_CI[lane],
                   inherit_kcp=False)
     reports = {f"--{lane}": _exit_report(proc, timeout=600)}
     seconds = time.perf_counter() - t0
     _check_exits(reports, torch_ok=False)
+    print_script_load(f"--{lane}", before, gcs, reports[f"--{lane}"][1], card)
     out = reports[f"--{lane}"][2]
     lines = [x for x in out.splitlines() if x.startswith("{")]
     if not lines:
@@ -1854,7 +1895,54 @@ def _lane_child(lane: str) -> tuple[dict, float]:
     return json.loads(lines[-1]), seconds
 
 
-def store_lanes_phase(card: str) -> None:
+def _live_children() -> dict:
+    """This process's live child processes: pid -> (its command line, cut
+    to 160 characters; its CPU seconds so far)."""
+    me, tick, out = str(os.getpid()), os.sysconf("SC_CLK_TCK"), {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat", encoding="ascii", errors="replace") as f:
+                rest = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        if rest[1] == me:  # ppid; utime and stime follow at 11 and 12
+            out[pid] = (cmd[:160], (int(rest[11]) + int(rest[12])) / tick)
+    return out
+
+
+def script_load(gcs: "FullCollections") -> dict:
+    """The script's own load as a lane starts: ``/proc/loadavg``, this
+    process's CPU seconds so far, its threads and live children, and its
+    full collections so far."""
+    with open("/proc/loadavg", encoding="ascii") as f:
+        load = " ".join(f.read().split()[:3])
+    return {"load": load, "cpu_s": sum(os.times()[:2]), "threads": threading.active_count(),
+            "children": _live_children(), "gc": len(gcs.pauses_ms)}
+
+
+def print_script_load(lane: str, before: dict, gcs: "FullCollections",
+                      child: dict | None, card: str) -> None:
+    """One line per lane: what else this machine and this script did
+    while the lane measured (the noise question of ROADMAP C3, C5, C6)."""
+    cpu = sum(os.times()[:2]) - before["cpu_s"]
+    now = _live_children()
+    kids = "; ".join(f"{pid} {cmd!r}: {now[pid][1] - cpu_s:.2f} CPU s in the window"
+                     if pid in now else f"{pid} {cmd!r}: gone"
+                     for pid, (cmd, cpu_s) in before["children"].items()) or "none"
+    child_gc = ("" if child is None else
+                f"; the lane child: {child['full_collections']} full collections "
+                f"({child['full_collection_ms']} ms, longest {child['longest_ms']} ms), "
+                f"{child['cpu_s']} CPU s")
+    print(f"load {lane}: {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} in this "
+          f"process's affinity; loadavg before {before['load']}; this process "
+          f"{cpu:.2f} CPU s over the lane's window, {before['threads']} threads; its "
+          f"children alive before the lane: {kids}; its full collections in the "
+          f"window: {gcs.since(before['gc'])}{child_gc} [{card}]")
+
+
+def store_lanes_phase(card: str, gcs: "FullCollections") -> None:
     """16. The store, encode, admission, replication and write-path lanes
     at ``scripts/ci.sh``'s shapes, each a ``python -m kcp_tpu_torch.bench``
     child held to that script's gates, unchanged: ``--store`` (watch
@@ -1868,14 +1956,14 @@ def store_lanes_phase(card: str) -> None:
     equal, the kill-mid-window drill with 0 lost and commit windows and
     batched acks counted). No lane runs controllers, and no child loads
     torch: these are host-path numbers on this machine's CPU."""
-    r, sec = _lane_child("store")
+    r, sec = _lane_child("store", gcs, card)
     sb = r["store_bench"]
     if not (sb["events_equal"] and r["value"] >= 4.0):
         fail(f"--store gates: {json.dumps(r)}")
     print(f"--store: {r['value']}x combined (floor 4; list {sb['list_speedup']}x, fan-out "
           f"{sb['fanout_speedup']}x) at {sb['objects']} objects x {sb['watches']} watches, "
           f"{sb['indexed']['events']} events equal; {sec:.1f} s (host path) [{card}]")
-    r, sec = _lane_child("encode")
+    r, sec = _lane_child("encode", gcs, card)
     eb = r["encode_bench"]
     if not (eb["bytes_equal"] and eb["events_equal"] and r["value"] >= 3.0):
         fail(f"--encode gates: {json.dumps(r)}")
@@ -1884,7 +1972,7 @@ def store_lanes_phase(card: str) -> None:
           f"encode {eb['fanout_encode_speedup']}x) at {eb['objects']} objects x "
           f"{eb['watchers']} watchers; bytes equal (sha256 {eb['cached']['sha256'][:16]}), "
           f"{eb['cached']['events']} events equal; {sec:.1f} s (host path) [{card}]")
-    r, sec = _lane_child("admission")
+    r, sec = _lane_child("admission", gcs, card)
     happy, st = r["admission_bench"]["happy"], r["admission_bench"]["storm"]
     if not (r["value"] < 5.0 and st["quiet_rejected"] == 0 and st["quiet_p99_ratio"] <= 2.0
             and st["flood_429"] > 0 and st["flood_retry_after_seen"]
@@ -1898,7 +1986,7 @@ def store_lanes_phase(card: str) -> None:
           f"{st['quiet_rejected']} rejected, flood {st['flood_429']} of {st['flood_sent']} "
           f"answered 429 with Retry-After, {st['flood_ok']} passed; {sec:.1f} s (host path) "
           f"[{card}]")
-    r, sec = _lane_child("replica")
+    r, sec = _lane_child("replica", gcs, card)
     rb = r["replica_bench"]
     kill = rb["kill"]
     if not (rb["bytes_equal"] and r["value"] >= 1.5 and kill["lost_after_promotion"] == 0
@@ -1910,7 +1998,7 @@ def store_lanes_phase(card: str) -> None:
           f"acked / {kill['lost_after_promotion']} lost, promoted to {kill['promoted_role']} "
           f"in {kill['promote_ms']} ms, epoch {kill['epoch']}; {sec:.1f} s (host path) "
           f"[{card}]")
-    r, sec = _lane_child("consistent")
+    r, sec = _lane_child("consistent", gcs, card)
     cb = r["consistent_bench"]
     rw, wf = cb["read_your_writes"], cb["wait_for_frontier"]
     if not (cb["bytes_equal"] and rw["stale"] == 0 and rw["replica_local_share"] >= 0.8
@@ -1922,7 +2010,7 @@ def store_lanes_phase(card: str) -> None:
           f"{rw['replica_local_share']} (floor 0.8), {rw['fallbacks']} fallbacks; frontier "
           f"wait p50 {wf['p50_ms']} p99 {wf['p99_ms']} ms under repl.ship 5 ms; {sec:.1f} s "
           f"(host path) [{card}]")
-    r, sec = _lane_child("writes")
+    r, sec = _lane_child("writes", gcs, card)
     wb = r["writes_bench"]
     drill = wb["kill_drill"]
     if not (r["value"] >= 2.0 and wb["state_equal"] and wb["rv_sequence_equal"]
@@ -1938,6 +2026,172 @@ def store_lanes_phase(card: str) -> None:
           f"{drill['acked_writes']} acked / {drill['lost_after_kill']} lost, "
           f"{drill['commit_windows']:.0f} commit windows, {drill['acks_batched']:.0f} batched "
           f"acks; {sec:.1f} s (host path) [{card}]")
+
+
+def watchers_phase(card: str, gcs: "FullCollections") -> None:
+    """17. The ``--watchers`` lane at ``scripts/ci.sh``'s shape, a child held
+    to that script's gates, unchanged: every stream established, under 100
+    KB RSS per watcher, soak growth under 1.15, delivery p99 under 3,000
+    ms, the flush A/B's streams equal byte for byte and line for line, a
+    flush reduction of 4x or more, the evict drill green. Host path: the
+    server child runs no controller. Then a ``--watchers-serve`` child as
+    the lane starts it, reporting as it exits that it loaded no torch, JAX
+    or JAX-package module."""
+    r, sec = _lane_child("watchers", gcs, card)
+    wb = r["watchers_bench"]
+    sc, ab, drill = wb["scale"], wb["ab"], wb["evict_drill"]
+    if not (sc["streams_established"] == sc["watchers"] and sc["rss_per_watcher_kb"] < 100
+            and sc["rss_soak_growth"] < 1.15 and sc["delivery_p99_ms"] is not None
+            and sc["delivery_p99_ms"] < 3000 and ab["bytes_equal"] and ab["lines_equal"]
+            and r["value"] >= 4.0 and drill["ok"]):
+        fail(f"--watchers gates: {json.dumps(r)}")
+    print(f"--watchers: {sc['streams_established']} of {sc['watchers']} streams at "
+          f"{sc['objects']} objects; delivery p50 {sc['delivery_p50_ms']} p99 "
+          f"{sc['delivery_p99_ms']} ms (limit 3000) over {sc['latency_samples']} samples; "
+          f"{sc['rss_per_watcher_kb']} KB RSS per watcher (limit 100), soak growth "
+          f"{sc['rss_soak_growth']} (limit 1.15), RSS {json.dumps(sc['rss_kb'])} KB; flush "
+          f"A/B {r['value']}x (floor 4; {ab['flushes_per_batch']:.0f} -> "
+          f"{ab['flushes_coalesced']:.0f} flushes at {ab['watchers']} watchers), streams "
+          f"byte-identical; evict drill: {drill['evicted_total']:.0f} evicted, terminal 410, "
+          f"{drill['healthy_lines']}/{drill['healthy_expected']} healthy lines; {sec:.1f} s "
+          f"(host path) [{card}]")
+    serve = _child("kcp_tpu_torch.bench", "--watchers-serve", inherit_kcp=False,
+                   env_extra={"KCP_WB_OBJECTS": "1000", "KCP_WB_CLUSTERS": "4"})
+    try:
+        line = serve.stdout.readline()
+        objects = json.loads(line)["objects"] if line.startswith("{") else None
+    finally:
+        serve.send_signal(signal.SIGTERM)
+        reports = {"--watchers-serve": _exit_report(serve)}
+    _check_exits(reports, torch_ok=False)
+    if objects != 1000:
+        fail(f"--watchers-serve: announced {line!r}")
+    print(f"--watchers' server child: served {objects} objects and exited 0 with no torch, "
+          f"jax, jaxlib or kcp_tpu module loaded [{card}]")
+
+
+#: phase 18's row shards: a 2x2x1 mesh whose hosts are two processes
+A7_SPEC = "2x2x1"
+#: phase 18: one rank of the two-process serving mesh (``python -c``; env
+#: MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK): the seeded ticks of
+#: :func:`mesh_ticks` over its hosts block on cuda:0, its wires to a file,
+#: a JSON report on its last line
+RANK_CODE = (
+    "import json, sys\n"
+    "sys.path.insert(0, %r)\n"
+    "import numpy as np, torch\n"
+    "import torch.distributed as dist\n"
+    "import chip_smoke as cs\n"
+    "from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded as kernel\n"
+    "from kcp_tpu_torch.parallel.distributed import init_distributed\n"
+    "from kcp_tpu_torch.parallel.mesh import mesh_from_spec\n"
+    "init_distributed()\n"
+    "dev = torch.device('cuda', 0)\n"
+    "mesh = mesh_from_spec(cs.A7_SPEC, devices=[dev, dev])\n"
+    "kernel.launches = 0\n"
+    "wires, ms = cs.mesh_ticks(mesh, torch, dev)\n"
+    "launches = kernel.launches\n"
+    "np.savez(%r %% dist.get_rank(), *wires)\n"
+    "print(json.dumps({'rank': dist.get_rank(), 'world': dist.get_world_size(),\n"
+    "      'backend': dist.get_backend(), 'process': mesh.process,\n"
+    "      'local_rows': mesh.local_rows, 'step_ms': ms, 'launches': launches}))\n"
+    "dist.destroy_process_group()\n")
+
+
+def mesh_ticks(mesh, torch, dev, timed: int = 10, b: int = 131072, s: int = 64):
+    """Phase 4's seeded fleet ticks and a third (seeds 7, 8, 9; capacities
+    8192, 256 to overflow, 8192) through ``reconcile_step_fleet`` on
+    ``mesh``, then ``timed`` steps of the last wire on the host clock, each
+    with its upload and its wire fetched to the host (on a multi-process
+    mesh, every collective and every staging copy between card and host
+    inside it). Returns (the ticks' wires as numpy arrays, ms per step)."""
+    from kcp_tpu_torch.models import reconcile_model as tm
+    from kcp_tpu_torch.parallel.mesh import FLAGS, ShardedTensor, shard_state
+
+    state, seg, packed, acks = step_case(np.random.default_rng(7), b, s, 1024, torch)
+    sh = [shard_state(state, mesh), ShardedTensor.put(tm.to_device(seg, dev), mesh, FLAGS)]
+
+    def step(cap: int) -> np.ndarray:
+        sh[0], sh[1], wire = tm.reconcile_step_fleet(
+            sh[0], sh[1], tm.to_device(packed, dev), tm.to_device(acks, dev),
+            patch_capacity=cap, seg_capacity=8, mesh=mesh)
+        return tm.wire_to_numpy(wire)
+
+    wires = []
+    for tick, cap in enumerate((8192, 256, 8192)):
+        if tick:
+            _st, _sg, packed, acks = step_case(np.random.default_rng(7 + tick), b, s, 1024,
+                                               torch)
+        wires.append(step(cap))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step(8192)
+    return wires, (time.perf_counter() - t0) / timed * 1e3
+
+
+def distributed_phase(torch, dev, card: str) -> int:
+    """18. A7 on the card: two rank processes of one ``torch.distributed``
+    group (``init_distributed`` from the environment, 127.0.0.1), each
+    holding its hosts block of a ``2x2x1`` mesh on cuda:0 (two row shards),
+    run :func:`mesh_ticks` at the serving shape (131,072 x 64); each rank's
+    row shards launch ``decide_and_match`` on the card. One card cannot
+    hold two NCCL ranks, so the group is gloo and what crosses processes
+    is staged through host memory. Both ranks' wires must equal the
+    one-process ``2x2x1`` run's byte for byte (that run is held against
+    the unsharded step in 4b's way: every wire here carries the overflow
+    tick). Prints each rank's backend, step ms and launches. Returns the
+    ranks' launches."""
+    import socket
+    import tempfile
+
+    one = smoke_mesh(A7_SPEC, dev)
+    want, one_ms = mesh_ticks(one, torch, dev)
+    if not bool(want[1][1]):
+        fail("A7: the overflow tick did not overflow")
+    tmp = tempfile.mkdtemp(prefix="kcp_a7_")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KCP_")}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+               GLOO_SOCKET_IFNAME="lo")
+    code = RANK_CODE % (os.path.dirname(os.path.abspath(__file__)),
+                        os.path.join(tmp, "rank%d.npz"))
+    procs = [subprocess.Popen([sys.executable, "-c", code], env={**env, "RANK": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    except subprocess.TimeoutExpired:
+        outs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if outs is None:
+        fail("A7: a rank outlived 300 s")
+    launches = 0
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"A7 rank {rank}: exit {p.returncode}; stderr {err[-2000:]}")
+        rep = json.loads(out.strip().splitlines()[-1])
+        got = np.load(os.path.join(tmp, f"rank{rank}.npz"))
+        for tick, w in enumerate(want):
+            if got[f"arr_{tick}"].tobytes() != w.tobytes():
+                fail(f"A7 rank {rank} tick {tick}: wire != the one-process {A7_SPEC} wire")
+        if rep["world"] != 2 or rep["process"] != rank or rep["launches"] == 0:
+            fail(f"A7 rank {rank}: {rep}")
+        launches += rep["launches"]
+        print(f"A7 rank {rank}/2 ({rep['backend']}, row shards {rep['local_rows']} of "
+              f"{A7_SPEC} on {dev}): 3 ticks at B=131072 S=64 wire == the one-process "
+              f"{A7_SPEC} wire byte for byte (overflow tick included); step "
+              f"{rep['step_ms']:.3f} ms incl. upload, collectives, staging through host "
+              f"memory and the wire's fetch; {rep['launches']} decide_and_match launches "
+              f"[{card}]")
+    print(f"A7: the one-process {A7_SPEC} step {one_ms:.3f} ms on the same card [{card}]")
+    return launches
 
 
 def main() -> None:
@@ -2082,20 +2336,38 @@ def main() -> None:
     #           events, before the profiler too; device times after it)
     compiled_timed = []
     suite_launches = suite_phase(torch, dev, card, timed, compiled_timed)
+    # torch.compile leaves a compile-worker process behind, which once
+    # burned CPU while phase 15's first lane measured: stop it
+    from torch._inductor.async_compile import shutdown_compile_workers
+
+    shutdown_compile_workers()
 
     # ---- 15. the sharded fleet's lanes at the reference CI's shapes and
     #           gates (the host path: no server runs controllers)
     mark = len(gcs.pauses_ms)
     t0 = time.perf_counter()
-    host_lanes_phase(card)
+    host_lanes_phase(card, gcs)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s; heap: phase 15 had {gcs.since(mark)}")
 
     # ---- 16. the store, encode, admission, replication and write-path lanes
     #           at the reference CI's shapes and gates, each in a child
     #           process (the host path: no server runs controllers)
     t0 = time.perf_counter()
-    store_lanes_phase(card)
+    store_lanes_phase(card, gcs)
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 17. the --watchers lane at the reference CI's shape and gates, in a
+    #           child process (the host path: its server runs no controller)
+    t0 = time.perf_counter()
+    watchers_phase(card, gcs)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 18. A7: two rank processes of one process group, each with its
+    #           hosts block of a 2x2x1 mesh on the card, against the
+    #           one-process 2x2x1 run (host clock, before the profiler too)
+    t0 = time.perf_counter()
+    a7_launches = distributed_phase(torch, dev, card)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
     # ---- 3, 3b, 14: the kernels' device times and 14's compiled
     #          compositions'; 4, 4b: no index_add_ in either step (profiled,
@@ -2140,7 +2412,7 @@ def main() -> None:
     record_sharded.update(name="decide_and_match_sharded", route="cuda",
                           source="kcp_tpu_torch/csrc/decide_match.cu",
                           replaces="kcp_tpu/ops/pallas_kernels.py:223",
-                          launches=launches_sharded, library_ms=None)
+                          launches=launches_sharded + a7_launches, library_ms=None)
     print("recorded before the redesign, not measured in this run (PERF.md §6): "
           + ", ".join(f"{r['name']} {RECORDED_EARLIER_MS[r['name']]} ms on the device "
                       f"against {r['ms']:.4f} ms now" for r in (record, record_sharded)))

@@ -77,8 +77,12 @@ or null), sized by the reference's knobs:
 - ``--writes`` (``KCP_BENCH_WRITES_*``): serial against grouped commit
   under ``KCP_WAL_SYNC=fsync``, state and RV sequences equal, and the
   kill-mid-window drill.
+- ``--watchers`` (``KCP_BENCH_WATCH*``): live watch streams against a
+  ``--watchers-serve`` child (delivery p50/p99, the child's RSS per
+  watcher and under soak), coalesced against per-batch watch flushes
+  (per-watcher stream sha256 equal), and the slow-watcher evict drill.
 
-The sharded-fleet lanes and these six start every server without
+The sharded-fleet lanes and these seven start every server without
 controllers, so they do no device work: their rates are the host's. A lane
 with device work and no card (nor ``--device cpu``) exits 2 before any
 run.
@@ -3366,7 +3370,8 @@ def consistent_bench() -> dict:
 
 def _raise_nofile() -> None:
     """Lift RLIMIT_NOFILE's soft cap to the hard cap: every writer thread
-    of the write-path lanes holds a connection."""
+    of the write-path lanes holds a connection, and 10k live watch streams
+    are 10k fds on each side of the wire."""
     try:
         import resource
 
@@ -3729,6 +3734,564 @@ def writes_bench() -> dict:
     }
     return out
 
+# --------------------------------------------------------------------------
+# --watchers: watcher-scale serving (flush coalescing, slow-watcher eviction)
+
+#: the ``--watchers`` lane's server child (:func:`watchers_serve`)
+WATCHERS_SERVE_ARGV = [sys.executable, "-m", "kcp_tpu_torch.bench", "--watchers-serve"]
+
+
+def watchers_serve() -> None:
+    """Internal child for ``--watchers`` (``python -m kcp_tpu_torch.bench
+    --watchers-serve``): one in-process asyncio server (LogicalStore +
+    RestHandler + HttpServer, admission off) seeded with
+    ``KCP_WB_OBJECTS`` deterministic configmaps across
+    ``KCP_WB_CLUSTERS`` tenants, announced as one JSON line on stdout.
+    It runs no controller and loads no torch.
+
+    Split across processes deliberately: the parent holds the client end
+    of every stream and this child holds the server end, so a 10k-stream
+    run bills ~10k fds to EACH process instead of 20k to one (the
+    RLIMIT_NOFILE wall). Determinism (fixed clock, preset uids, preset
+    RV sequence) is what lets the A/B passes compare per-watcher stream
+    hashes across separate child processes.
+    """
+    import signal
+
+    from .apis.scheme import default_scheme
+    from .server.handler import RestHandler
+    from .server.httpd import HttpServer
+    from .store.store import LogicalStore
+
+    _raise_nofile()
+    n_objects = int(os.environ.get("KCP_WB_OBJECTS", "100000"))
+    n_clusters = int(os.environ.get("KCP_WB_CLUSTERS", "100"))
+
+    async def run() -> None:
+        store = LogicalStore(clock=lambda: 0.0)
+        per = max(1, n_objects // n_clusters)
+        for c in range(n_clusters):
+            cl = f"w{c}"
+            for i in range(per):
+                store.create("configmaps", cl, {
+                    "apiVersion": "v1", "kind": "ConfigMap",
+                    "metadata": {"name": f"cm-{i}", "namespace": "default",
+                                 "uid": f"uid-{cl}-{i}"},
+                    "data": {"v": "0"},
+                })
+        handler = RestHandler(store, default_scheme(), admission=None)
+        handler.ready = True
+        srv = HttpServer(handler)
+        await srv.start()
+        # the parent terminates us: SIGTERM ends the serve and the process
+        # exits 0, its exit hooks run
+        stop = asyncio.Event()
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
+        print(json.dumps({"addr": srv.address, "objects": len(store),
+                          "pid": os.getpid()}), flush=True)
+        await stop.wait()
+        await srv.stop()
+
+    asyncio.run(run())
+
+
+_WB_TOKEN_RE = re.compile(rb'"v": "m(\d+)"')
+
+
+class _WatcherStats:
+    """Shared accounting the raw watcher tasks append into."""
+
+    def __init__(self):
+        self.lines = 0
+        self.established = 0
+        self.lat: list[float] = []
+        self.t_send: dict[int, float] = {}  # token -> just-before-send
+        self.hashes: dict[int, str] = {}    # watcher idx -> stream sha256
+
+
+async def _wb_watcher(i: int, host: str, port: int, cluster: str,
+                      stats: _WatcherStats, ready: asyncio.Event,
+                      hash_lines: bool = False) -> None:
+    """One raw watch stream: minimal HTTP, chunked-line reassembly,
+    latency sampling off the mutation tokens. Deliberately NOT RestWatch
+    — 10k of these must cost a task + a socket + a buffer, nothing else."""
+    reader, writer = await asyncio.open_connection(host, port)
+    h = hashlib.sha256() if hash_lines else None
+    try:
+        writer.write(
+            f"GET /clusters/{cluster}/api/v1/configmaps?watch=true "
+            f"HTTP/1.1\r\nHost: bench\r\n\r\n".encode())
+        await writer.drain()
+        await reader.readuntil(b"\r\n\r\n")
+        stats.established += 1
+        ready.set()
+        buf = b""
+        while True:
+            size_line = await reader.readline()
+            if not size_line:
+                return
+            size = int(size_line.strip() or b"0", 16)
+            if size == 0:
+                return
+            payload = await reader.readexactly(size)
+            await reader.readexactly(2)  # \r\n
+            now = time.monotonic()
+            buf += payload
+            *lines, buf = buf.split(b"\n")
+            for line in lines:
+                if not line:
+                    continue
+                stats.lines += 1
+                if h is not None:
+                    h.update(line + b"\n")
+                m = _WB_TOKEN_RE.search(line)
+                if m is not None:
+                    t0 = stats.t_send.get(int(m.group(1)))
+                    if t0 is not None:
+                        stats.lat.append(now - t0)
+    except (ConnectionError, asyncio.IncompleteReadError, OSError,
+            ValueError):
+        return
+    finally:
+        if h is not None:
+            stats.hashes[i] = h.hexdigest()
+        writer.close()
+        try:
+            await writer.wait_closed()
+        except (ConnectionError, OSError):
+            pass
+
+
+def _wb_spawn_child(objects: int, clusters: int, coalesce: bool,
+                    flush_ms: str, extra_env: dict | None = None):
+    """Spawn the --watchers-serve child; returns (Popen, host, port)."""
+    import subprocess
+    from urllib.parse import urlsplit
+
+    env = dict(os.environ)
+    env.pop("KCP_FAULTS", None)
+    env["KCP_WB_OBJECTS"] = str(objects)
+    env["KCP_WB_CLUSTERS"] = str(clusters)
+    env["KCP_WATCH_COALESCE"] = "1" if coalesce else "0"
+    env["KCP_WATCH_FLUSH_MS"] = flush_ms
+    env.update(extra_env or {})
+    p = subprocess.Popen(WATCHERS_SERVE_ARGV, stdout=subprocess.PIPE,
+                         stderr=subprocess.DEVNULL, env=env, text=True,
+                         cwd=REPO_ROOT)
+    line = p.stdout.readline()
+    if not line:
+        raise RuntimeError(f"--watchers-serve child died rc={p.poll()}")
+    info = json.loads(line)
+    parts = urlsplit(info["addr"])
+    return p, parts.hostname, parts.port
+
+
+def _wb_slow_socket():
+    """The evict drill's slow client socket, unconnected and non-blocking.
+    A tiny SO_RCVBUF keeps the kernel from absorbing megabytes on the
+    client's behalf — backpressure must reach the server's transport
+    buffer, where the eviction policy watches."""
+    import socket
+
+    sk = socket.socket()
+    sk.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+    sk.setblocking(False)
+    return sk
+
+
+def _wb_child_rss_kb(pid: int) -> int:
+    with open(f"/proc/{pid}/status", encoding="ascii") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    return 0
+
+
+def _wb_scrape_counter(host: str, port: int, name: str) -> float:
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=10)
+    try:
+        conn.request("GET", "/metrics")
+        text = conn.getresponse().read().decode()
+    finally:
+        conn.close()
+    for line in text.splitlines():
+        if line.startswith(name + " ") or line.startswith(name + "{"):
+            return float(line.rsplit(None, 1)[-1])
+    return 0.0
+
+
+def _wb_mutate(host: str, port: int, schedule: list[tuple[str, str]],
+               stats: _WatcherStats, threads: int = 4,
+               pad: int = 0) -> float:
+    """Drive the seeded update schedule over HTTP from worker threads
+    (the serving loop lives in the child; the parent loop must stay free
+    for 10k readers). Tokens stamp ``data.v`` so watchers can clock
+    send→delivery without sharing a wall clock with the child. Returns
+    elapsed seconds."""
+    from .server.rest import RestClient
+
+    lock = threading.Lock()
+    pos = 0
+
+    def worker() -> None:
+        nonlocal pos
+        # wildcard client: each update routes to the cluster named in
+        # metadata.clusterName (the schedule spans many tenants)
+        c = RestClient(f"http://{host}:{port}", cluster="*")
+        try:
+            while True:
+                with lock:
+                    if pos >= len(schedule):
+                        return
+                    tok = pos
+                    cl, name = schedule[pos]
+                    pos += 1
+                stats.t_send[tok] = time.monotonic()
+                data = {"v": f"m{tok}"}
+                if pad:
+                    data["pad"] = "x" * pad
+                c.update("configmaps", {
+                    "apiVersion": "v1", "kind": "ConfigMap",
+                    "metadata": {"name": name, "namespace": "default",
+                                 "clusterName": cl},
+                    "data": data,
+                })
+        finally:
+            c.close()
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, daemon=True) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return time.perf_counter() - t0
+
+
+async def _wb_mutate_pipelined(host: str, port: int,
+                               schedule: list[tuple[str, str]],
+                               stats: _WatcherStats,
+                               pace_s: float = 0.0) -> float:
+    """Drive the seeded update schedule over ONE pipelined HTTP/1.1
+    connection: requests go out back-to-back and responses are reaped
+    concurrently, so the commit rate is the server's processing rate,
+    not one client round trip per write — the sustained-burst shape the
+    flush A/B measures. A single connection also makes the COMMIT ORDER
+    (and with it every rv and every watcher's byte stream) exactly the
+    schedule order, which is what lets two separate child processes be
+    compared hash-for-hash."""
+    reader, writer = await asyncio.open_connection(host, port)
+    t0 = time.perf_counter()
+
+    async def reap() -> None:
+        for _ in schedule:
+            head = await reader.readuntil(b"\r\n\r\n")
+            clen = 0
+            for line in head.split(b"\r\n"):
+                if line.lower().startswith(b"content-length:"):
+                    clen = int(line.split(b":", 1)[1])
+            if clen:
+                await reader.readexactly(clen)
+
+    reaper = asyncio.ensure_future(reap())
+    try:
+        for tok, (cl, name) in enumerate(schedule):
+            body = json.dumps({
+                "apiVersion": "v1", "kind": "ConfigMap",
+                "metadata": {"name": name, "namespace": "default",
+                             "clusterName": cl},
+                "data": {"v": f"m{tok}"},
+            }).encode()
+            stats.t_send[tok] = time.monotonic()
+            writer.write(
+                f"PUT /clusters/{cl}/api/v1/configmaps/{name} HTTP/1.1\r\n"
+                f"Host: bench\r\nContent-Type: application/json\r\n"
+                f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+            if pace_s:
+                # sustained rate, not one mega-burst: the A/B measures
+                # flush amortization under a steady commit stream (a
+                # burst that outruns every producer collapses both modes
+                # into one flush and measures nothing)
+                await asyncio.sleep(pace_s)
+            elif tok % 32 == 31:
+                await writer.drain()
+        await writer.drain()
+        await reaper
+    finally:
+        reaper.cancel()
+        writer.close()
+        try:
+            await writer.wait_closed()
+        except (ConnectionError, OSError):
+            pass
+    return time.perf_counter() - t0
+
+
+def watchers_bench() -> dict:
+    """Watcher-scale serving bench (``--watchers``): can ONE server
+    sustain 10k live watch streams at 100k objects with bounded memory
+    and bounded delivery latency?
+
+    Three lanes, one ``--watchers-serve`` child server process per lane
+    (fd bill split across processes; see :func:`watchers_serve`):
+
+    - **scale**: connect ``KCP_BENCH_WATCHERS`` streams in two halves
+      against a 100k-object store, drive seeded update bursts, measure
+      send→delivery p50/p99 across every stream and the child's RSS at
+      each checkpoint — the gate is the RSS *slope* (per-watcher cost
+      bounded, plateau under sustained load), not a magic number;
+    - **flush A/B** (the headline value): the same seeded schedule at
+      reduced scale against coalesced (KCP_WATCH_COALESCE=1) and
+      per-batch (=0) children — per-watcher stream sha256 must be
+      IDENTICAL across modes while ``watch_flush_total`` drops by the
+      reported factor;
+    - **evict drill**: a watcher that never reads while writes flood a
+      tiny KCP_WATCH_BUFFER_MAX child — the slow socket must be evicted
+      (metric + terminal typed 410 on the wire) while a healthy watcher
+      on the same cluster keeps every event.
+    """
+    _raise_nofile()
+    n_watchers = int(os.environ.get("KCP_BENCH_WATCHERS", "10000"))
+    n_objects = int(os.environ.get("KCP_BENCH_WATCH_OBJECTS", "100000"))
+    n_clusters = int(os.environ.get("KCP_BENCH_WATCH_CLUSTERS", "100"))
+    n_muts = int(os.environ.get("KCP_BENCH_WATCH_MUTS", "1200"))
+    # A/B width: small enough that the PER-BATCH baseline can actually
+    # flush once per event batch (a saturated baseline auto-batches in
+    # self-defense, flattering itself) — the reduction is measured where
+    # the comparison is honest
+    ab_watchers = int(os.environ.get("KCP_BENCH_WATCH_AB", "64"))
+    ab_muts = int(os.environ.get("KCP_BENCH_WATCH_AB_MUTS", "600"))
+    # scale lane serves at the production cadence; the A/B lane runs a
+    # throughput-shaped tick (merging is bounded by commits-per-tick, so
+    # the amortization factor is measured AT a declared cadence — the
+    # docs' latency/syscall tradeoff, not a hidden knob)
+    flush_ms = os.environ.get("KCP_BENCH_WATCH_FLUSH_MS", "2")
+    ab_flush_ms = os.environ.get("KCP_BENCH_WATCH_AB_FLUSH_MS", "100")
+    ab_pace_ms = float(os.environ.get("KCP_BENCH_WATCH_AB_PACE_MS", "3"))
+    per_cluster = max(1, n_objects // n_clusters)
+
+    def schedule_for(muts: int, clusters: int, focus: int = 0) -> list:
+        """Seeded (cluster, name) update schedule. ``focus`` > 0 pins
+        all updates onto that many clusters — the fan-out pressure
+        shape the flush A/B measures."""
+        rng = np.random.default_rng(1234)
+        span = focus if focus else clusters
+        return [(f"w{int(rng.integers(span))}",
+                 f"cm-{int(rng.integers(per_cluster))}")
+                for _ in range(muts)]
+
+    async def stop(p, tasks: list) -> None:
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        _stop_all([p])
+
+    async def scale_lane() -> dict:
+        p, host, port = _wb_spawn_child(n_objects, n_clusters, True,
+                                        flush_ms)
+        stats = _WatcherStats()
+        out: dict = {"watchers": n_watchers, "objects": n_objects,
+                     "clusters": n_clusters, "mutations": n_muts}
+        tasks: list[asyncio.Task] = []
+        loop = asyncio.get_running_loop()
+        try:
+            rss0 = _wb_child_rss_kb(p.pid)
+
+            async def connect(count: int, base: int) -> None:
+                chunk = 200
+                for at in range(0, count, chunk):
+                    evs = []
+                    for i in range(at, min(at + chunk, count)):
+                        ready = asyncio.Event()
+                        evs.append(ready)
+                        tasks.append(asyncio.ensure_future(_wb_watcher(
+                            base + i, host, port,
+                            f"w{(base + i) % n_clusters}", stats, ready)))
+                    await asyncio.gather(*(e.wait() for e in evs))
+
+            half = n_watchers // 2
+            await connect(half, 0)
+            await loop.run_in_executor(
+                None, _wb_mutate, host, port,
+                schedule_for(n_muts // 2, n_clusters), stats)
+            await asyncio.sleep(0.5)
+            rss_half = _wb_child_rss_kb(p.pid)
+            stats.lat.clear()
+            await connect(n_watchers - half, half)
+            out["streams_established"] = stats.established
+            await loop.run_in_executor(
+                None, _wb_mutate, host, port,
+                schedule_for(n_muts // 2, n_clusters), stats)
+            await asyncio.sleep(0.5)
+            rss_full = _wb_child_rss_kb(p.pid)
+            lat = sorted(stats.lat)
+            out["delivery_p50_ms"] = round(
+                1000 * lat[len(lat) // 2], 2) if lat else None
+            out["delivery_p99_ms"] = round(
+                1000 * lat[int(len(lat) * 0.99) - 1], 2) if lat else None
+            out["latency_samples"] = len(lat)
+            # plateau: more sustained load at FULL width must not grow
+            # the resident set (bounded queues + bounded caches)
+            await loop.run_in_executor(
+                None, _wb_mutate, host, port,
+                schedule_for(n_muts // 2, n_clusters), stats)
+            await asyncio.sleep(0.5)
+            rss_soak = _wb_child_rss_kb(p.pid)
+            out["rss_kb"] = {"start": rss0, "half": rss_half,
+                             "full": rss_full, "soak": rss_soak}
+            out["rss_per_watcher_kb"] = round(
+                (rss_full - rss_half) / max(n_watchers - half, 1), 2)
+            out["rss_soak_growth"] = round(
+                rss_soak / max(rss_full, 1), 4)
+            out["lines_delivered"] = stats.lines
+            out["evicted"] = _wb_scrape_counter(
+                host, port, "watch_evicted_total")
+            out["resumes_shared"] = _wb_scrape_counter(
+                host, port, "watch_resume_shared_total")
+        finally:
+            await stop(p, tasks)
+        return out
+
+    async def ab_lane() -> dict:
+        """Coalesced vs per-batch flush A/B: identical seeded schedule,
+        per-watcher stream hashes must match; flush count is the value."""
+        ab_objects = min(n_objects, 10000)
+        ab_clusters = 2  # all pressure on few clusters: every event
+        # fans out to ~half the A/B watchers, the shape coalescing serves
+        results: dict[str, dict] = {}
+        for label, coalesce in (("per_batch", False), ("coalesced", True)):
+            p, host, port = _wb_spawn_child(ab_objects, ab_clusters,
+                                            coalesce, ab_flush_ms)
+            stats = _WatcherStats()
+            tasks: list[asyncio.Task] = []
+            try:
+                flush0 = _wb_scrape_counter(host, port, "watch_flush_total")
+                evs = []
+                for i in range(ab_watchers):
+                    ready = asyncio.Event()
+                    evs.append(ready)
+                    tasks.append(asyncio.ensure_future(_wb_watcher(
+                        i, host, port, f"w{i % ab_clusters}", stats, ready,
+                        hash_lines=True)))
+                await asyncio.gather(*(e.wait() for e in evs))
+                elapsed = await _wb_mutate_pipelined(
+                    host, port,
+                    schedule_for(ab_muts, ab_clusters, focus=ab_clusters),
+                    stats, pace_s=ab_pace_ms / 1000.0)
+                # let the tail of the fan-out land before hashing stops:
+                # every watcher sees its cluster's share
+                for _ in range(200):
+                    if stats.lines >= ab_muts * (ab_watchers // ab_clusters):
+                        break
+                    await asyncio.sleep(0.05)
+                flush1 = _wb_scrape_counter(host, port, "watch_flush_total")
+            finally:
+                await stop(p, tasks)
+            results[label] = {
+                "flushes": flush1 - flush0,
+                "lines": stats.lines,
+                "elapsed_s": round(elapsed, 3),
+                "hashes": dict(stats.hashes),
+            }
+        a, b = results["per_batch"], results["coalesced"]
+        bytes_equal = (a["hashes"] == b["hashes"]
+                       and len(a["hashes"]) == ab_watchers)
+        reduction = a["flushes"] / max(b["flushes"], 1.0)
+        return {
+            "watchers": ab_watchers, "mutations": ab_muts,
+            "clusters": ab_clusters, "flush_ms": ab_flush_ms,
+            "pace_ms": ab_pace_ms,
+            "bytes_equal": bytes_equal,
+            "lines_equal": a["lines"] == b["lines"],
+            "flushes_per_batch": a["flushes"],
+            "flushes_coalesced": b["flushes"],
+            "flush_reduction": round(reduction, 2),
+            "per_batch_s": a["elapsed_s"], "coalesced_s": b["elapsed_s"],
+        }
+
+    async def evict_lane() -> dict:
+        """Slow-watcher eviction drill: one stream that never reads, one
+        healthy stream, writes until the slow socket passes the buffer
+        bound — expect the eviction metric, a terminal typed 410 on the
+        wire, and zero disturbance to the healthy stream."""
+        p, host, port = _wb_spawn_child(
+            64, 1, True, "1", {"KCP_WATCH_BUFFER_MAX": "4096"})
+        out: dict = {}
+        stats = _WatcherStats()
+        tasks: list[asyncio.Task] = []
+        try:
+            # the slow client: sends the watch request, never reads
+            sk = _wb_slow_socket()
+            await asyncio.get_running_loop().sock_connect(sk, (host, port))
+            s_reader, s_writer = await asyncio.open_connection(sock=sk)
+            s_writer.write(b"GET /clusters/w0/api/v1/configmaps?watch=true "
+                           b"HTTP/1.1\r\nHost: bench\r\n\r\n")
+            await s_writer.drain()
+            ready = asyncio.Event()
+            tasks.append(asyncio.ensure_future(_wb_watcher(
+                0, host, port, "w0", stats, ready)))
+            await ready.wait()
+            loop = asyncio.get_running_loop()
+            writes = 400
+            await loop.run_in_executor(
+                None, _wb_mutate, host, port,
+                [("w0", f"cm-{i % 64}") for i in range(writes)], stats, 2,
+                16384)  # padded events: the backlog must outrun the
+            # kernel's own socket buffering to reach the eviction bound
+            deadline = loop.time() + 20
+            evicted = 0.0
+            while loop.time() < deadline:
+                evicted = _wb_scrape_counter(host, port,
+                                             "watch_evicted_total")
+                if evicted:
+                    break
+                await asyncio.sleep(0.2)
+            out["evicted_total"] = evicted
+            # now read what the server buffered for the slow client: the
+            # stream must end in a terminal typed 410 Status
+            data = b""
+            try:
+                while True:
+                    chunk = await asyncio.wait_for(s_reader.read(65536),
+                                                   timeout=5)
+                    if not chunk:
+                        break
+                    data += chunk
+            except asyncio.TimeoutError:
+                pass
+            out["terminal_410"] = (b'"code": 410' in data
+                                   and b'"reason": "Expired"' in data)
+            s_writer.close()
+            # the healthy stream saw every committed write
+            for _ in range(100):
+                if stats.lines >= writes:
+                    break
+                await asyncio.sleep(0.05)
+            out["healthy_lines"] = stats.lines
+            out["healthy_expected"] = writes
+            out["ok"] = bool(out["terminal_410"]) and evicted >= 1 \
+                and stats.lines >= writes
+        finally:
+            await stop(p, tasks)
+        return out
+
+    async def run() -> dict:
+        scale = await scale_lane()
+        ab = await ab_lane()
+        drill = await evict_lane()
+        return {"scale": scale, "ab": ab, "evict_drill": drill}
+
+    res = asyncio.run(run())
+    return {
+        "metric": "watch_flush_reduction",
+        "value": res["ab"]["flush_reduction"],
+        "unit": "x",
+        "stage": "watchers",
+        "watchers_bench": res,
+    }
+
 
 def card_line() -> str | None:
     """The card's name and power limit as ``nvidia-smi`` prints them, or
@@ -3783,10 +4346,16 @@ def main(argv: list[str] | None = None) -> None:
                       help="RV-barrier consistent reads, read-your-writes via the router")
     lane.add_argument("--writes", action="store_true",
                       help="serial against grouped commit, the kill-mid-window drill")
+    lane.add_argument("--watchers", action="store_true",
+                      help="10k live watch streams, the flush A/B, the evict drill")
     lane.add_argument("--shard-loadgen", action="store_true", help=argparse.SUPPRESS)
+    lane.add_argument("--watchers-serve", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.shard_loadgen:
         shard_loadgen()
+        return
+    if args.watchers_serve:
+        watchers_serve()
         return
     if args.placement:
         env = lambda name, default: int(os.environ.get(  # noqa: E731
@@ -3800,7 +4369,7 @@ def main(argv: list[str] | None = None) -> None:
                   "elastic": elastic_bench, "store": store_bench,
                   "encode": encode_bench, "admission": admission_bench,
                   "replica": replica_bench, "consistent": consistent_bench,
-                  "writes": writes_bench}
+                  "writes": writes_bench, "watchers": watchers_bench}
     host_lane = next((k for k in host_lanes if getattr(args, k)), None)
     if (args.fleet or args.pagination or args.gauntlet or args.trace or args.suite
             or host_lane):

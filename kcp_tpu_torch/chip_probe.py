@@ -18,7 +18,19 @@ Run from the repo root on a card:
   means (``KCP_PROBE_SECONDS`` each, 8 by default; 0 skips them), and
   last each step's device events and device time (profiler). Give the
   trees as parent, change, change, parent to compare two commits on one
-  card.
+  card;
+- ``python3 -m kcp_tpu_torch.chip_probe lanes [PAIRS [LOG]]`` — the reference's
+  ``python bench.py --admission`` and ``--sharded`` against the port's
+  ``python -m kcp_tpu_torch.bench`` lanes at ``scripts/ci.sh``'s shapes
+  (``chip_smoke.py``'s ``STORE_LANES_CI`` and ``HOST_LANES_CI``), in
+  PAIRS alternating pairs (10 by default; reference first in even pairs,
+  the port first in odd ones), each run a child process of its own
+  through ``chip_smoke.py``'s ``WRAPPER``: the gate readings (the
+  admission overhead, the storm's quiet p99 ratio, the 2-shard capacity
+  ratio), the JAX modules the child loaded, its full collections and CPU
+  seconds, and ``/proc/loadavg`` before it; then each side's readings and
+  misses per gate. Host path: it needs no card. With LOG, every record
+  is also appended to that file as a JSON line.
 
 Each prints one line per reading and, for ``ab``, one JSON line per tree.
 The measuring code and its cases are this tree's (``chip_smoke.py``'s
@@ -235,11 +247,86 @@ def ab(trees: list[str], seconds: float, card: str) -> None:
                 + f" [{card}]")
 
 
+#: the timing gates of ``scripts/ci.sh`` that the ``lanes`` probe reads:
+#: lane -> (reading's name, how to read it from the lane's JSON line, passes)
+LANE_GATES = {
+    "admission": (
+        ("overhead_pct", lambda r: r["value"], lambda x: x < 5.0),
+        ("quiet_p99_ratio", lambda r: r["admission_bench"]["storm"]["quiet_p99_ratio"],
+         lambda x: x <= 2.0)),
+    "sharded": (
+        ("capacity_2", lambda r: r["sharded_bench"]["capacity_speedup"]["2"],
+         lambda x: x >= 1.6),),
+}
+
+
+def _lane_run(side: str, lane: str) -> dict:
+    """One run of a lane at the CI shape, in a child of its own: the
+    reference's ``bench.py`` or the port's ``kcp_tpu_torch.bench``."""
+    cs = _smoke()
+    knobs = {**cs.STORE_LANES_CI, **cs.HOST_LANES_CI}[lane]
+    target = os.path.join(REPO, "bench.py") if side == "reference" else "kcp_tpu_torch.bench"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KCP_")}
+    env.update(knobs, PYTHONPATH=REPO)
+    with open("/proc/loadavg", encoding="ascii") as f:
+        load = f.read().split()[:3]
+    code = cs.WRAPPER % (("jax", "jaxlib"), target.rsplit(".", 1)[-1] if side == "port"
+                         else target, target, target)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code, f"--{lane}"], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    rc, report, out, err = cs._exit_report(proc, timeout=600)
+    rec = {"side": side, "lane": lane, "rc": rc, "wall_s": round(time.perf_counter() - t0, 2),
+           "loadavg_before": load, "report": report}
+    lines = [x for x in out.splitlines() if x.startswith("{")]
+    if rc != 0 or not lines:
+        rec["error"] = err[-1500:]
+        return rec
+    r = json.loads(lines[-1])
+    rec["readings"] = {name: read(r) for name, read, _ok in LANE_GATES[lane]}
+    return rec
+
+
+def lanes(pairs: int, log_path: str = os.devnull) -> None:
+    runs = []
+    with open(log_path, "a", encoding="utf-8") as log:
+        for p in range(pairs):
+            for lane in LANE_GATES:
+                order = ("reference", "port") if p % 2 == 0 else ("port", "reference")
+                for side in order:
+                    rec = dict(_lane_run(side, lane), pair=p)
+                    runs.append(rec)
+                    log.write(json.dumps(rec) + "\n")
+                    log.flush()
+                    rep = rec["report"] or {}
+                    print(f"pair {p} {lane} {side}: rc {rec['rc']} "
+                          f"{json.dumps(rec.get('readings'))} {rec['wall_s']} s, load "
+                          f"{' '.join(rec['loadavg_before'])}, jax packages "
+                          f"{sorted({m.split('.')[0] for m in rep.get('loaded', [])})}, {rep.get('full_collections')} full "
+                          f"collections ({rep.get('full_collection_ms')} ms), cpu "
+                          f"{rep.get('cpu_s')} s" + (f"; {rec['error'][-300:]}"
+                                                     if "error" in rec else ""), flush=True)
+    for lane, gates in LANE_GATES.items():
+        for side in ("reference", "port"):
+            got = [r for r in runs if r["lane"] == lane and r["side"] == side]
+            for name, _read, ok in gates:
+                vals = [r["readings"][name] for r in got if "readings" in r]
+                print(f"{lane} {side} {name}: {sum(not ok(v) for v in vals)} of {len(vals)} "
+                      f"miss ({len(got) - len(vals)} runs failed); readings "
+                      f"{json.dumps(vals)}")
+
+
 def main(argv: list[str]) -> None:
-    if not argv or argv[0] not in ("host", "sweep", "ab", "measure"):
+    if not argv or argv[0] not in ("host", "sweep", "ab", "measure", "lanes"):
         raise SystemExit(__doc__)
     if argv[0] == "measure":
         measure(argv[1], float(argv[2]))
+        return
+    if argv[0] == "lanes":
+        from kcp_tpu_torch.bench import card_line
+
+        print(card_line() or "no nvidia-smi")
+        lanes(int(argv[1]) if len(argv) > 1 else 10, *argv[2:3])
         return
     import torch
 

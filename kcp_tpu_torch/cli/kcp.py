@@ -162,12 +162,15 @@ def build_parser():
                             "--device repeated when it names one): N "
                             "(tenants), NxM (tenants x slots), NxMxK (hosts "
                             "x tenants x slots), or 'auto' (one tenants "
-                            "shard per visible CUDA device), e.g. --mesh 4x2")
+                            "shard per visible CUDA device; with "
+                            "--distributed, hosts = the processes), e.g. "
+                            "--mesh 4x2")
     start.add_argument("--distributed", action="store_true",
                        help="form the torch.distributed process group "
-                            "before serving (multi-host; a world of more "
-                            "than one process is not supported yet, "
-                            "ROADMAP A7)")
+                            "before serving (multi-host: every process "
+                            "holds its own hosts block of the mesh's row "
+                            "shards and drives the same ticks; NCCL when "
+                            "each process has a card, else gloo)")
     start.add_argument("--coordinator", default="",
                        help="process-group address (host:port); env "
                             "MASTER_ADDR/MASTER_PORT also works")
@@ -297,12 +300,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.distributed:
         from ..parallel.distributed import init_distributed
 
-        try:  # a world of more than one process names its ROADMAP entry
-            init_distributed(coordinator=args.coordinator or None,
-                             num_processes=args.num_processes,
-                             process_id=args.process_id)
-        except NotImplementedError as e:
-            raise SystemExit(f"kcp start: {e}") from None
+        init_distributed(coordinator=args.coordinator or None,
+                         num_processes=args.num_processes,
+                         process_id=args.process_id, device=args.device)
     asyncio.run(serve(config_from_args(args)))
     return 0
 

@@ -37,7 +37,7 @@ import torch
 from ..faults import maybe_fail
 from ..ops.encode import pad_pow2
 from ..ops.placement import split_replicas_weighted
-from ..parallel.mesh import FLAGS, REPLICATED, ShardedTensor, row_factor
+from ..parallel.mesh import FLAGS, REPLICATED, ShardedTensor, gather_blocks, row_factor
 from ..utils.device import resolve_device
 from ..utils.trace import REGISTRY
 
@@ -121,7 +121,9 @@ def solve_sharded(mesh, demand, cand, alloc, region, home_region, spread=0,
     mesh (rows over hosts x tenants like every [B] batch dimension, each
     row block whole on its row shard's device; the [P] fleet vectors
     replicate). Rows pad to the mesh's row factor; each row shard solves
-    its block on its own device and the blocks concatenate on the host."""
+    its block on its own device and the blocks concatenate on the host. On
+    a mesh whose row shards span processes, each process solves its own
+    blocks and the others' arrive through ``parallel.mesh.gather_blocks``."""
     W = int(np.asarray(demand).shape[0])
     rows = row_factor(mesh)
     Wp = max(((W + rows - 1) // rows) * rows, rows)
@@ -140,10 +142,11 @@ def solve_sharded(mesh, demand, cand, alloc, region, home_region, spread=0,
     c = put_rows(np.asarray(cand, bool))
     h = put_rows(np.asarray(home_region, np.int32))
     a, r = put_all(alloc), put_all(region)
-    blocks = [solve_batched(d.blocks[i][0], c.blocks[i][0], a.blocks[i][0],
-                            r.blocks[i][0], h.blocks[i][0], spread, locality_weight)
-              for i in range(rows)]
-    return np.concatenate([b.cpu().numpy() for b in blocks])[:W]
+    blocks = gather_blocks(mesh, {
+        i: (solve_batched(d.blocks[i][0], c.blocks[i][0], a.blocks[i][0],
+                          r.blocks[i][0], h.blocks[i][0], spread, locality_weight),)
+        for i in mesh.local_rows}, [hi - lo for lo, hi in d.bounds])
+    return np.concatenate([b[0].cpu().numpy() for b in blocks])[:W]
 
 
 class FleetSolver:

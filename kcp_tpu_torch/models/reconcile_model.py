@@ -20,7 +20,11 @@ applies the entries whose rows it owns (drop-mode scatters drop the rest)
 and runs the kernel and the placement lane over its own rows on its own
 device, and the quantities that cross shards — match counts, stats,
 per-segment counts, patch and placement compaction — are reduced on the
-lead device. The wire is byte-equal to the unsharded step's.
+lead device. On a mesh whose ``hosts`` axis spans the processes of a
+``torch.distributed`` group, each process runs only its own row shards
+and those reductions go through collectives on the group
+(``parallel.mesh.all_sum``, ``gather_blocks``), so that every process
+assembles the same wire. The wire is byte-equal to the unsharded step's.
 
 Where the reference donates its state to a jitted step, this port
 updates the resident mirrors IN PLACE: ``up_vals``/``up_exists``/
@@ -48,7 +52,7 @@ from ..ops.diff import (
     scatter_rows_drop,
 )
 from ..ops.placement import placement_changed, split_replicas
-from ..parallel.mesh import FLAGS, ShardedTensor, row_factor, shard_state
+from ..parallel.mesh import FLAGS, ShardedTensor, all_sum, gather_blocks, row_factor, shard_state
 from ..utils.device import resolve_device
 
 
@@ -586,7 +590,8 @@ class ReconcileModel:
 
 # ---------------------------------------------------------------------------
 # The sharded step. Row-local work runs per row shard on its device; what
-# crosses shards is reduced on the mesh's lead device.
+# crosses shards is reduced on the mesh's lead device (and, across the
+# processes of a multi-process mesh, through collectives on the group).
 # ---------------------------------------------------------------------------
 
 
@@ -601,7 +606,8 @@ def _localize(idx: torch.Tensor, valid: torch.Tensor, lo: int, n: int,
 
 
 class _Sharded(NamedTuple):
-    """What one sharded step leaves on the lead device (and per shard)."""
+    """What one sharded step leaves on the lead device (and per local
+    row shard)."""
 
     state: ReconcileState
     patch_idx: torch.Tensor
@@ -610,7 +616,7 @@ class _Sharded(NamedTuple):
     patch_count: torch.Tensor
     patch_overflow: torch.Tensor
     stats: torch.Tensor
-    decisions: list  # per row shard, on its device
+    decisions: list  # per local row shard, on its device
     upsyncs: list
     leaf: torch.Tensor  # whole [R, P] on the lead
     dirty: torch.Tensor  # whole [R] on the lead
@@ -624,12 +630,16 @@ class _Sharded(NamedTuple):
 
     def outputs(self) -> ReconcileOutputs:
         lead = self.stats.device
+        mesh = self.state.up_vals.mesh
+        rows = gather_blocks(mesh, {i: (d.to(lead), u.to(lead)) for i, d, u in zip(
+            mesh.local_rows, self.decisions, self.upsyncs)},
+            [hi - lo for lo, hi in self.state.up_vals.bounds])
         return ReconcileOutputs(
             patch_idx=self.patch_idx, patch_code=self.patch_code,
             patch_upsync=self.patch_upsync, patch_count=self.patch_count,
             patch_overflow=self.patch_overflow, stats=self.stats,
-            decision=torch.cat([d.to(lead) for d in self.decisions]),
-            status_upsync=torch.cat([u.to(lead) for u in self.upsyncs]),
+            decision=torch.cat([r[0] for r in rows]),
+            status_upsync=torch.cat([r[1] for r in rows]),
             leaf_replicas=self.leaf, placement_dirty=self.dirty,
             match_counts=self.match_counts)
 
@@ -641,11 +651,15 @@ def _step_sharded(state: ReconcileState, deltas: ReconcileDeltas,
                   seg_capacity: int = 8) -> _Sharded:
     """The step over a sharded state, in the unsharded step's order per
     shard: segment stamps, acks copy, mask stamps, delta scatter, kernel,
-    placement, local compaction. Updates every shard in place.
+    placement, local compaction. Updates every local shard in place.
 
     Rows split unevenly when B does not divide by the row factor
     (``parallel.mesh.row_bounds``): the step never pads, so any B gives
-    the unsharded answer."""
+    the unsharded answer. On a multi-process mesh every process calls it
+    with the same wire and runs its own row shards (``mesh.local_rows``);
+    the counts, stats, placement lanes and patch candidates of the others
+    arrive through the group's collectives, in the same order on every
+    process."""
     mesh = state.up_vals.mesh
     lead = mesh.lead
     i32 = torch.int32
@@ -653,8 +667,8 @@ def _step_sharded(state: ReconcileState, deltas: ReconcileDeltas,
     k = patch_capacity
     per_row = state.status_mask.ndim == 2
     n_valid = deltas.valid.sum(dtype=i32)
-    kernel_in, currents = [], []
-    for i in range(row_factor(mesh)):
+    kernel_in, currents = [], [None] * row_factor(mesh)
+    for i in mesh.local_rows:
         lo, hi = state.up_vals.bounds[i]
         n = hi - lo
         dev = mesh.grid[i][0]
@@ -694,37 +708,41 @@ def _step_sharded(state: ReconcileState, deltas: ReconcileDeltas,
                           state.sel_hashes.blocks[i][0],
                           *(() if seg_ids is None else (seg_ids.blocks[i][0],))))
     decisions, upsyncs, match_counts, seg_counts = decide_and_match_shards(
-        kernel_in, lead, None if seg_ids is None else seg_capacity)
+        kernel_in, lead, None if seg_ids is None else seg_capacity, mesh=mesh)
 
-    cand_idx, cand_code, cand_up, sums, leaves, dirties = [], [], [], [], [], []
-    for i, (dec, ups) in enumerate(zip(decisions, upsyncs)):
-        lo, hi = state.up_vals.bounds[i]
-        n = hi - lo
-        up_ex = kernel_in[i][1]
+    sizes = [hi - lo for lo, hi in state.up_vals.bounds]
+    # each shard's first min(K, n) actionable rows, in row order
+    kks = [min(k, n) for n in sizes]
+    cands, sums, placed = {}, [], {}
+    for i, dec, ups, args in zip(mesh.local_rows, decisions, upsyncs, kernel_in):
+        lo, n, kk = state.up_vals.bounds[i][0], sizes[i], kks[i]
+        up_ex = args[1]
         # placement lane over this shard's roots
         leaf = split_replicas(state.replicas.blocks[i][0], state.avail.blocks[i][0])
-        currents.append([leaf])
-        leaves.append(leaf.to(lead))
-        dirties.append(placement_changed(state.current.blocks[i][0], leaf).to(lead))
+        currents[i] = [leaf]
+        placed[i] = (leaf.to(lead),
+                     placement_changed(state.current.blocks[i][0], leaf).to(lead))
         act = (dec != DECISION_NOOP) | ups
         sums.append(torch.stack([
             up_ex.sum(dtype=i32), (dec == 1).sum(dtype=i32),
             (dec == 2).sum(dtype=i32), (dec == 3).sum(dtype=i32),
             ups.sum(dtype=i32), act.sum(dtype=i32)]).to(lead))
         if n == 0:
+            cands[i] = (torch.empty(0, dtype=i32, device=lead),
+                        torch.empty(0, dtype=torch.uint8, device=lead),
+                        torch.empty(0, dtype=torch.bool, device=lead))
             continue
-        # this shard's first min(K, n) actionable rows, in row order
-        kk = min(k, n)
         pos = first_true(act, kk)
         valid = pos < n
         safe = pos.clamp(max=n - 1).long()
-        cand_idx.append(torch.where(valid, pos + lo, b).to(lead))
-        cand_code.append(torch.where(valid, dec[safe], 0).to(torch.uint8).to(lead))
-        cand_up.append((valid & ups[safe]).to(lead))
+        cands[i] = (torch.where(valid, pos + lo, b).to(lead),
+                    torch.where(valid, dec[safe], 0).to(torch.uint8).to(lead),
+                    (valid & ups[safe]).to(lead))
     # the global compaction: the shards' candidates concatenate in row
     # order, so the first K valid ones are the whole bucket's first K
-    if cand_idx:
-        cidx, ccode, cup = torch.cat(cand_idx), torch.cat(cand_code), torch.cat(cand_up)
+    if sum(kks):
+        every = gather_blocks(mesh, cands, kks)
+        cidx, ccode, cup = (torch.cat(c) for c in zip(*every))
         m = cidx.shape[0]
         take = first_true(cidx < b, k)
         hit = take < m
@@ -736,10 +754,11 @@ def _step_sharded(state: ReconcileState, deltas: ReconcileDeltas,
         patch_idx = torch.full((k,), b, dtype=i32, device=lead)
         patch_code = torch.zeros(k, dtype=torch.uint8, device=lead)
         patch_up = torch.zeros(k, dtype=torch.bool, device=lead)
-    part = torch.stack(sums).sum(dim=0, dtype=i32)
+    part = all_sum(mesh, torch.stack(sums).sum(dim=0, dtype=i32))
     total = part[5]
-    leaf = torch.cat(leaves)
-    dirty = torch.cat(dirties)
+    leaves = gather_blocks(mesh, placed, [hi - lo for lo, hi in state.replicas.bounds])
+    leaf = torch.cat([p[0] for p in leaves])
+    dirty = torch.cat([p[1] for p in leaves])
     stats = torch.stack([
         part[0], part[1], part[2], part[3], part[4],
         dirty.sum(dtype=i32), match_counts.sum(dtype=i32), n_valid.to(lead)])

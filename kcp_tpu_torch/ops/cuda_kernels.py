@@ -38,7 +38,10 @@ launch of the same kernel per row shard, on that shard's device, over the
 shard's rows with its slot columns gathered to full S; the [C] (and
 [seg_capacity]) counts of shards that share a device accumulate into one
 zeroed buffer (the kernel adds into the counts it is given), and the
-per-device sums are added on the mesh's lead device.
+per-device sums are added on the mesh's lead device. On a mesh whose row
+shards span the processes of a ``torch.distributed`` group, a process
+launches only over its own row shards and one ``all_reduce`` on the group
+adds the other processes' counts.
 ``decide_and_match_sharded.launches`` (and ``.by_thread``) counts those
 per-shard launches.
 """
@@ -427,17 +430,20 @@ def _count(wrapper, launched: int) -> None:
             wrapper.by_thread[tid] = wrapper.by_thread.get(tid, 0) + launched
 
 
-def decide_and_match_shards(shards, lead: torch.device, seg_capacity=None):
+def decide_and_match_shards(shards, lead: torch.device, seg_capacity=None, mesh=None):
     """The per-shard core of :func:`decide_and_match_sharded`.
 
-    ``shards`` holds one tuple per row shard — (up_vals, up_exists,
-    down_vals, down_exists, status_mask, pair_hashes, sel_hashes), plus
-    the shard's seg_ids block in the fleet form (``seg_capacity`` given) —
-    each the shard's rows with full S, on the shard's device. Returns the
-    per-shard decision and upsync lanes, the global [C] counts on
-    ``lead`` and, in the fleet form, the global [seg_capacity] counts on
-    ``lead`` (else None). CPU shards take the plain version; CUDA shards
-    launch the kernel, accumulating into one zeroed buffer per device."""
+    ``shards`` holds one tuple per row shard of this process — (up_vals,
+    up_exists, down_vals, down_exists, status_mask, pair_hashes,
+    sel_hashes), plus the shard's seg_ids block in the fleet form
+    (``seg_capacity`` given) — each the shard's rows with full S, on the
+    shard's device. Returns the per-shard decision and upsync lanes, the
+    global [C] counts on ``lead`` and, in the fleet form, the global
+    [seg_capacity] counts on ``lead`` (else None). CPU shards take the
+    plain version; CUDA shards launch the kernel, accumulating into one
+    zeroed buffer per device. On a ``mesh`` whose row shards span
+    processes, the counts of the other processes' shards join through one
+    ``all_reduce`` on the group (the reference's ``psum``)."""
     fleet = seg_capacity is not None
     acc: dict[torch.device, torch.Tensor] = {}
     seg_acc: dict[torch.device, torch.Tensor] = {}
@@ -462,8 +468,15 @@ def decide_and_match_shards(shards, lead: torch.device, seg_capacity=None):
             raise ValueError(f"decide_and_match_sharded: unsupported device {dev}")
         decisions.append(d)
         upsyncs.append(u)
-    return (decisions, upsyncs, _sum_on(acc, lead),
-            _sum_on(seg_acc, lead) if fleet else None)
+    counts = _sum_on(acc, lead)
+    seg_counts = _sum_on(seg_acc, lead) if fleet else None
+    if mesh is not None and mesh.process is not None:
+        from ..parallel.mesh import all_sum
+
+        c = counts.shape[0]
+        both = all_sum(mesh, counts if seg_counts is None else torch.cat([counts, seg_counts]))
+        counts, seg_counts = both[:c], (both[c:] if fleet else None)
+    return decisions, upsyncs, counts, seg_counts
 
 
 def _sum_on(parts: dict, lead: torch.device) -> torch.Tensor:
@@ -487,8 +500,8 @@ def decide_and_match_sharded(mesh, up_vals, up_exists, down_vals, down_exists,
 
     Arguments are ShardedTensors laid out as ``shard_state`` lays out a
     state (``seg_ids`` as the row flags), or whole tensors, which are
-    sharded here with that layout. Every row shard runs the kernel (or,
-    on the CPU, the plain version) over its local rows with its slot
+    sharded here with that layout. Every row shard of this process runs
+    the kernel (or, on the CPU, the plain version) over its rows with its slot
     columns gathered to full S. Any B works, including one that does not
     split evenly over the row shards: the split is uneven
     (``parallel.mesh.row_bounds``), never padded, so the reference's TPU
@@ -507,14 +520,18 @@ def decide_and_match_sharded(mesh, up_vals, up_exists, down_vals, down_exists,
         layouts.append(pm.FLAGS)
     args = [a if isinstance(a, pm.ShardedTensor) else pm.ShardedTensor.put(a, mesh, lay)
             for a, lay in zip(tensors, layouts)]
-    shards = [tuple(a.row_block(i) for a in args)
-              for i in range(pm.row_factor(mesh))]
+    shards = [tuple(a.row_block(i) for a in args) for i in mesh.local_rows]
     decisions, upsyncs, counts, seg_counts = decide_and_match_shards(
-        shards, mesh.lead, cap)
+        shards, mesh.lead, cap, mesh=mesh)
     b = args[0].shape[0]
-    out = (pm.ShardedTensor(mesh, pm.FLAGS, (b,), [[d] for d in decisions]),
-           pm.ShardedTensor(mesh, pm.FLAGS, (b,), [[u] for u in upsyncs]),
-           counts)
+
+    def rows(lanes):
+        blocks = [None] * pm.row_factor(mesh)
+        for i, t in zip(mesh.local_rows, lanes):
+            blocks[i] = [t]
+        return pm.ShardedTensor(mesh, pm.FLAGS, (b,), blocks)
+
+    out = (rows(decisions), rows(upsyncs), counts)
     return out if cap is None else (*out, seg_counts)
 
 

@@ -19,7 +19,12 @@ Where the reference annotates ``NamedSharding``s and lets XLA insert the
 collectives, the port holds each shard as its own tensor on its own
 device (:class:`ShardedTensor`) and the sharded step
 (``models/reconcile_model.py``) reduces the cross-shard quantities on the
-mesh's lead device itself. A mesh's device list may repeat a device: the
+mesh's lead device itself. In a ``torch.distributed`` group of more than
+one process (``make_multihost_mesh(..., process=rank)``), the ``hosts``
+index is the rank: a process holds only its own hosts block of row shards
+(:attr:`Mesh.local_rows`), a remote row shard has no tensor and no device
+here, and what crosses row shards goes through :func:`all_sum` and
+:func:`gather_blocks` on the group. A mesh's device list may repeat a device: the
 tests build 8 x ``cpu`` meshes and the card smoke 4 x ``cuda:0``. Every
 shard is still a separate allocation, so the per-shard code is the code a
 host with several cards runs. Copies between devices go through
@@ -47,19 +52,32 @@ _SERVING_MESH: "Mesh | None" = None
 
 class Mesh:
     """A grid of ``torch.device``s with named axes (``hosts``/``tenants``/
-    ``slots``). ``devices`` is a numpy object array shaped like the axes."""
+    ``slots``). ``devices`` is a numpy object array shaped like the axes.
 
-    def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...]):
+    ``process`` is this process's rank on a mesh whose ``hosts`` axis spans
+    the processes of a ``torch.distributed`` group (its remote entries are
+    None), and None on a mesh held whole by one process."""
+
+    def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...],
+                 process: int | None = None):
         if devices.ndim != len(axis_names):
             raise ValueError(f"device grid of rank {devices.ndim} for axes {axis_names}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.process = process
         rf, sf = row_factor(self), slot_factor(self)
         # [row shard][slot shard] -> device; row shards follow the
         # (hosts, tenants) fold in C order
-        self.grid: list[list[torch.device]] = [
+        self.grid: list[list[torch.device | None]] = [
             list(r) for r in devices.reshape(rf, sf)]
-        self.lead = self.grid[0][0]
+        #: the row shards this process holds, in row order
+        self.local_rows = [i for i in range(rf) if self.grid[i][0] is not None]
+        self.lead = self.grid[self.local_rows[0]][0]
+
+    @property
+    def local_devices(self) -> tuple:
+        """This process's devices, each once, in grid order."""
+        return tuple(dict.fromkeys(d for d in self.devices.flat if d is not None))
 
     @property
     def shape(self) -> dict[str, int]:
@@ -67,12 +85,14 @@ class Mesh:
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, Mesh) and self.axis_names == other.axis_names
+                and self.process == other.process
                 and self.devices.shape == other.devices.shape
                 and list(self.devices.flat) == list(other.devices.flat))
 
     def __repr__(self) -> str:
+        where = "" if self.process is None else f", process={self.process}"
         return (f"Mesh({self.shape}, devices="
-                f"{[str(d) for d in self.devices.flat]})")
+                f"{[str(d) for d in self.devices.flat]}{where})")
 
 
 def _visible_devices() -> list[torch.device]:
@@ -88,6 +108,16 @@ def _visible_devices() -> list[torch.device]:
 
 def _as_devices(devices) -> list[torch.device]:
     return [torch.device(d) for d in devices]
+
+
+def _group() -> tuple[int, int]:
+    """(world size, rank) of the formed ``torch.distributed`` group, or
+    (1, 0) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
 
 
 def set_serving_mesh(mesh: "Mesh | str | None") -> "Mesh | None":
@@ -107,16 +137,29 @@ def mesh_from_spec(spec: str, devices: list | None = None) -> Mesh:
     """Build a mesh from a spec string.
 
     ``"8"`` -> (tenants=8, slots=1); ``"4x2"`` -> (tenants=4, slots=2);
-    ``"2x2x2"`` -> (hosts=2, tenants=2, slots=2); ``"auto"`` -> the flat
-    tenants mesh over this process's visible CUDA devices. ``devices``
-    defaults to the visible CUDA devices and may repeat a device.
+    ``"2x2x2"`` -> (hosts=2, tenants=2, slots=2); ``"auto"`` ->
+    ``distributed.pod_serving_mesh`` (hosts-major over the processes of a
+    ``torch.distributed`` group of more than one, else flat tenants over
+    this process's devices). ``devices`` defaults to the visible CUDA
+    devices and may repeat a device. In such a group, a 3-D spec whose
+    hosts equal the world size spans the processes: ``devices`` are then
+    this process's own (tenants x slots of them).
     """
     if spec.strip().lower() == "auto":
         from .distributed import pod_serving_mesh
 
-        return pod_serving_mesh()
+        return pod_serving_mesh(devices=devices)
     dims = _spec_dims(spec)
     devs = _as_devices(devices) if devices is not None else _visible_devices()
+    world, rank = _group()
+    if len(dims) == 3 and world > 1 and dims[0] == world:
+        h, t, s = dims
+        if devices is None:  # this process's share of the host's cards
+            from .distributed import _rank_devices
+
+            devs = _rank_devices(devs, world, rank)
+        return make_multihost_mesh(hosts=h, tenants=t, slots=s, devices=devs[:t * s],
+                                   process=rank)
     n = int(np.prod(dims))
     if len(devs) < n:
         raise ValueError(
@@ -145,9 +188,10 @@ def mesh_on(spec: str, device: "str | torch.device | None" = None) -> Mesh:
     """The mesh of ``spec`` for an entry point's ``device`` argument:
     ``None`` (or a bare ``"cuda"``) spreads it over the visible CUDA
     devices; a named device (``"cpu"``, ``"cuda:1"``) holds every shard."""
-    if (device is None or torch.device(device) == torch.device("cuda")
-            or spec.strip().lower() == "auto"):
+    if device is None or torch.device(device) == torch.device("cuda"):
         return mesh_from_spec(spec)
+    if spec.strip().lower() == "auto":
+        return mesh_from_spec(spec, devices=[device])
     return mesh_from_spec(spec, devices=[device] * int(np.prod(_spec_dims(spec))))
 
 
@@ -175,10 +219,14 @@ def make_mesh(n_devices: int | None = None, tenants: int | None = None,
 
 
 def make_multihost_mesh(hosts: int, tenants: int | None = None, slots: int = 1,
-                        devices: list | None = None) -> Mesh:
-    """A 3D (hosts, tenants, slots) mesh with hosts as the major axis."""
+                        devices: list | None = None, process: int | None = None) -> Mesh:
+    """A 3D (hosts, tenants, slots) mesh with hosts as the major axis.
+
+    With ``process`` (a rank of a ``torch.distributed`` group of ``hosts``
+    processes), ``devices`` are this process's own, its hosts block is
+    the rank's, and the other blocks are remote (None in the grid)."""
     devs = _as_devices(devices) if devices is not None else _visible_devices()
-    n = len(devs)
+    n = len(devs) * (hosts if process is not None else 1)
     if n % hosts:
         raise ValueError(f"{n} devices not divisible into {hosts} hosts")
     per_host = n // hosts
@@ -186,8 +234,14 @@ def make_multihost_mesh(hosts: int, tenants: int | None = None, slots: int = 1,
         tenants = per_host // slots
     if tenants * slots != per_host:
         raise ValueError(f"per-host mesh {tenants}x{slots} != {per_host} devices")
-    return Mesh(_grid(devs, (hosts, tenants, slots)),
-                (HOSTS_AXIS, TENANTS_AXIS, SLOTS_AXIS))
+    if process is None:
+        return Mesh(_grid(devs, (hosts, tenants, slots)),
+                    (HOSTS_AXIS, TENANTS_AXIS, SLOTS_AXIS))
+    if not 0 <= process < hosts:
+        raise ValueError(f"process {process} is not a hosts index of {hosts}")
+    grid = np.full((hosts, tenants, slots), None, dtype=object)
+    grid[process] = _grid(devs, (tenants, slots))
+    return Mesh(grid, (HOSTS_AXIS, TENANTS_AXIS, SLOTS_AXIS), process=process)
 
 
 def row_factor(mesh: Mesh) -> int:
@@ -270,12 +324,13 @@ class ShardedTensor:
         layout = Layout(layout.rows, layout.cols and sf > 1)
         rows = row_bounds(t.shape[0], rf) if layout.rows else [(0, t.shape[0])] * rf
         cols = _col_bounds(t.shape[-1], sf) if layout.cols else [(0, None)]
-        blocks = []
-        for i, (a, z) in enumerate(rows):
+        blocks: list = [None] * rf  # a remote row shard holds nothing here
+        for i in mesh.local_rows:
+            a, z = rows[i]
             part = t[a:z]
-            blocks.append([
+            blocks[i] = [
                 part[..., c0:c1].to(mesh.grid[i][j], copy=True).contiguous()
-                for j, (c0, c1) in enumerate(cols)])
+                for j, (c0, c1) in enumerate(cols)]
         return cls(mesh, layout, tuple(t.shape), blocks)
 
     def row_block(self, i: int) -> torch.Tensor:
@@ -283,6 +338,9 @@ class ShardedTensor:
         device: the block itself when columns are whole (so in-place
         updates reach the shard), else a gather of its column blocks."""
         blks = self.blocks[i]
+        if blks is None:
+            raise ValueError(f"row shard {i} lives in another process "
+                             f"(this one is hosts index {self.mesh.process})")
         if len(blks) == 1:
             return blks[0]
         dev = blks[0].device
@@ -299,20 +357,89 @@ class ShardedTensor:
             b.copy_(full[..., j * w:(j + 1) * w])
 
     def full(self, device: torch.device | None = None) -> torch.Tensor:
-        """The whole tensor on ``device`` (default the mesh's lead)."""
+        """The whole tensor on ``device`` (default the mesh's lead); the
+        row shards of other processes come through :func:`gather_blocks`."""
         dev = self.mesh.lead if device is None else device
-        parts = [self.row_block(i).to(dev) for i in range(len(self.blocks))]
         if not self.layout.rows:
-            return parts[0]
-        return torch.cat(parts, dim=0)
+            return self.row_block(self.mesh.local_rows[0]).to(dev)
+        parts = gather_blocks(self.mesh, {i: (self.row_block(i).to(self.mesh.lead),)
+                                          for i in self.mesh.local_rows},
+                              [hi - lo for lo, hi in self.bounds])
+        return torch.cat([p[0].to(dev) for p in parts], dim=0)
 
     def clone(self) -> "ShardedTensor":
         return ShardedTensor(self.mesh, self.layout, self.shape,
-                             [[b.clone() for b in r] for r in self.blocks])
+                             [None if r is None else [b.clone() for b in r]
+                              for r in self.blocks])
 
     def __repr__(self) -> str:
         return (f"ShardedTensor(shape={self.shape}, layout={self.layout}, "
                 f"{len(self.blocks)}x{len(self.blocks[0])} blocks)")
+
+
+# ---------------------------------------------------------------------------
+# Across processes: what the reference's XLA collectives do over DCN
+# ---------------------------------------------------------------------------
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the group's backend takes it: gloo takes CPU tensors
+    only, so a card's tensor is staged through host memory."""
+    import torch.distributed as dist
+
+    return t.cpu() if t.is_cuda and dist.get_backend() == "gloo" else t
+
+
+def all_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the mesh's processes (the reference's ``psum``
+    over ``hosts``), on ``t``'s device; ``t`` itself on a mesh that one
+    process holds whole."""
+    if mesh.process is None:
+        return t
+    import torch.distributed as dist
+
+    buf = _wire(t).clone()
+    dist.all_reduce(buf)
+    return buf.to(t.device)
+
+
+def gather_blocks(mesh: Mesh, local: dict, sizes: list[int]) -> list[tuple]:
+    """Every row shard's blocks, in row order: ``local`` maps each of this
+    process's row shards to a tuple of tensors whose dim 0 is the shard's
+    ``sizes[i]`` rows (trailing dims and dtypes the same for every shard).
+
+    On a mesh one process holds whole, the tuples as given. Across
+    processes, one ``all_gather`` on the group: each process packs its
+    blocks as int32 columns, each padded to the largest shard's rows
+    (``all_gather`` takes equal sizes; ``row_bounds`` splits unevenly), and
+    every row shard comes back cut to its size, on the mesh's lead, in its
+    dtype. Every process calls it at the same point with the same sizes."""
+    if mesh.process is None:
+        return [local[i] for i in range(len(sizes))]
+    import torch.distributed as dist
+
+    lead = mesh.lead
+    proto = local[mesh.local_rows[0]]
+    tails = [tuple(t.shape[1:]) for t in proto]
+    widths = [int(np.prod(tl)) for tl in tails]
+    rows = max(sizes)
+    packed = torch.zeros((len(mesh.local_rows), rows, sum(widths)), dtype=torch.int32,
+                         device=lead)
+    for k, i in enumerate(mesh.local_rows):
+        cols = [t.to(lead).reshape(sizes[i], w).to(torch.int32)
+                for t, w in zip(local[i], widths)]
+        if sizes[i]:
+            packed[k, :sizes[i]] = torch.cat(cols, dim=1)
+    mine = _wire(packed)
+    world = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(world, mine)
+    every = torch.cat(world).to(lead)  # [row shards, rows, columns]
+    out, at = [], np.cumsum([0] + widths)
+    for i, n in enumerate(sizes):
+        blk = every[i, :n]
+        out.append(tuple(blk[:, a:z].reshape((n, *tl)).to(t.dtype)
+                         for a, z, tl, t in zip(at[:-1], at[1:], tails, proto)))
+    return out
 
 
 def state_sharding_tree(mesh: Mesh, row_status_mask: bool = False):

@@ -124,7 +124,7 @@ def _upload(a: np.ndarray, device: torch.device, mesh, layout):
 
 
 def _mesh_devices(mesh) -> tuple:
-    return () if mesh is None else tuple(dict.fromkeys(mesh.devices.flat))
+    return () if mesh is None else mesh.local_devices
 
 
 def _device_key(dev: torch.device) -> tuple[str, int]:

@@ -18,7 +18,8 @@ interpreter (``-I``: no user site, no PYTHONPATH hooks) and inspects its
 ``sys.modules``. The bench's sharded lanes start children of their own:
 a ``kcp start`` shard and a ``--shard-loadgen`` writer run the same way
 through a wrapper that reports their modules as they exit, torch among
-them: neither runs controllers, so neither loads torch. Each entry point
+them, and so does the ``--watchers`` lane's ``--watchers-serve`` server:
+none of them runs controllers, so none loads torch. Each entry point
 of such a process imports without loading torch, and a server that does
 install controllers loads it and places its core on the device it was
 given (without a card and without a device it refuses to start). A static scan
@@ -234,6 +235,22 @@ def test_sharded_lanes_children_load_no_jax_and_no_reference_module():
     finally:
         shard.send_signal(signal.SIGTERM)
     assert _exit_report(shard) == []
+
+
+def test_watchers_serve_child_loads_no_torch_jax_or_reference_module():
+    """The ``--watchers`` lane's server child (``bench.WATCHERS_SERVE_ARGV``)
+    serves its seeded store with no controller, so it loads no torch."""
+    from kcp_tpu_torch import bench
+
+    assert bench.WATCHERS_SERVE_ARGV[1:] == ["-m", "kcp_tpu_torch.bench", "--watchers-serve"]
+    child = _wrapped("kcp_tpu_torch.bench", "--watchers-serve", env_extra={
+        "KCP_WB_OBJECTS": "200", "KCP_WB_CLUSTERS": "2"})
+    try:
+        info = json.loads(child.stdout.readline() or "{}")
+        assert info.get("objects") == 200, child.stderr.read()[-3000:]
+    finally:
+        child.send_signal(signal.SIGTERM)
+    assert _exit_report(child) == []
 
 
 # the entry points of processes that run no controllers: importing one

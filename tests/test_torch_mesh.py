@@ -9,7 +9,8 @@ in interpret mode, the sharded step against the JAX mesh step and the
 unsharded port step (with an overflowing tick and a fleet segment that
 straddles a shard boundary), a B that does not split evenly, a lockstep
 ``FusedCore(mesh=)`` patch stream against the JAX one, growth and
-overflow under a mesh, and the ``init_distributed`` argument assembly.
+overflow under a mesh, and the ``init_distributed`` argument assembly and
+group formation.
 All outputs are integers: every comparison is exact equality.
 """
 
@@ -31,6 +32,7 @@ from kcp_tpu_torch.parallel.distributed import init_distributed
 from kcp_tpu_torch.syncer.core import FusedBucket
 
 from test_torch_core import ClosedLoopOwner, _lockstep, _until
+from test_torch_distributed import form_world_of_two
 from test_torch_model import _as_int32, _fuzz_case
 
 CPU8 = [torch.device("cpu")] * 8
@@ -389,7 +391,8 @@ def test_for_current_loop_falls_back_to_the_serving_mesh():
 
 def test_distributed_arg_assembly(monkeypatch):
     """Explicit args win over the torch.distributed environment; an
-    explicit single process is a no-op; a larger world is refused."""
+    explicit single process is a no-op; a larger world forms the group
+    (two gloo ranks on 127.0.0.1, ``test_torch_distributed.py``)."""
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("MASTER_ADDR", "envhost")
@@ -401,8 +404,7 @@ def test_distributed_arg_assembly(monkeypatch):
     assert init_distributed(coordinator="cli:9", num_processes=8, process_id=0,
                             _dry_run=True) == {
         "init_method": "tcp://cli:9", "world_size": 8, "rank": 0}
-    with pytest.raises(NotImplementedError, match="A7"):
-        init_distributed()
+    form_world_of_two()
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var)
     assert init_distributed(num_processes=1) == {"world_size": 1}
