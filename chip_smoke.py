@@ -6,7 +6,8 @@ Phases, each fatal on failure:
 
 1. device — a CUDA card must be present; prints its name and power limit;
 2. build — compiles the port's CUDA kernel from ``kcp_tpu_torch/csrc``
-   (ptxas registers, stack and spills);
+   (ptxas registers, stack and spills), then the port's native host
+   library and extension from ``native/`` (path and seconds of each);
 3. kernel vs plain — ``decide_and_match`` against its plain PyTorch
    version on the card, exact equality, at the serving shape
    (B=131,072, S=64, per-row mask, L=1, C=8) in its 3-output form and in
@@ -38,8 +39,10 @@ Phases, each fatal on failure:
 5c. after the main path, what needs the profiler (a profiler session
    can leave later launches slower on the host, so none runs before the
    host-clock readings of phases 5 and 5b): the device time of every phase-3, 3b and 14 case,
-   back to back and with the L2 flushed before every call, and the cold
-   time's share of the bound rate; the ``index_add_`` checks of 4 and 4b;
+   back to back and with the L2 flushed before every call by writing and
+   by reading 256 MiB, each profiled call holding its expected device
+   events (a short profile is taken again, three in all), and the colder
+   flushed time's share of the bound rate; the ``index_add_`` checks of 4 and 4b;
    then a short profiled loop (device busy share, top device events, and
    how many ``index_add_`` kernels ran: none is expected);
 6. engine path — ``start_syncer`` over two ``LogicalStore``s on the card,
@@ -438,69 +441,122 @@ def smoke_mesh(spec: str, dev):
     return mesh_from_spec(spec, devices=[dev] * SMOKE_SHARDS)
 
 
-#: bytes read between two calls of a cold-L2 device time: over 5x the
-#: H100's 50 MiB L2, so no input of the call before stays resident
+#: bytes written (or read) between two calls of a cold-L2 device time:
+#: over 5x the H100's 50 MiB L2, so no input of the call before stays
+#: resident
 L2_FLUSH_BYTES = 256 * 2**20
+#: the profiler range around each measured call
+CALL_RANGE = "chip_smoke.measured_call"
+#: seconds of unmeasured calls at the start of a profile, by attempt: after
+#: the earlier phases the profiler was seen to miss the first 9 launches of
+#: every window (H100, torch 2.11)
+PROFILE_WARMUP_S = (0.05, 0.25, 1.0)
 
 
-def kernel_device_ms(fn, torch, calls: int = 20,
-                     kernel: str | None = "decide_match_kernel",
-                     flush=None) -> float | None:
-    """The device time per call of ``fn`` of the events named ``kernel``
-    (every event with ``kernel=None``; profiler; every launch of the call
-    summed, so a sharded call counts all its shards), or None when the
-    profiler sees no such device time. With ``flush``, ``flush()`` runs
-    before every call (a cold L2) and, with ``kernel=None``, its own device
-    time, profiled alone, is taken off."""
-    def total(run) -> float | None:
-        _wall, ev = device_profile(run, torch)
-        dev_us = [us for k, (_n, us) in ev.items() if kernel is None or kernel in k]
-        return sum(dev_us) if dev_us else None
+def call_events(fn, torch, calls: int, kernel: str | None, flush=None,
+                warmup_s: float = PROFILE_WARMUP_S[0]) -> tuple:
+    """``fn()`` ``calls`` times under torch.profiler, each call in a
+    ``CALL_RANGE`` range, after ``warmup_s`` of unmeasured calls in the
+    same window; with ``flush``, ``flush()`` runs
+    before every call, outside the range. Returns, per measured call, the
+    device us of each device event it launched whose name holds ``kernel``
+    (every one with ``kernel=None``), the unmeasured calls' count, and the
+    count of such events anywhere in the profile. A device event belongs
+    to a call when the CUDA API call that launched it (``cudaLaunchKernel``,
+    ``cuLaunchKernel``, ``cudaMemsetAsync``, ...: the one with its
+    correlation id) ran inside the call's range; a launch through ctypes
+    has no op to hang on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    if flush is None:
-        us = total(lambda: [fn() for _ in range(calls)])
-        return us / calls / 1e3 if us is not None else None
-    us = total(lambda: [(flush(), fn()) for _ in range(calls)])
-    if us is not None and kernel is None:
-        flush_us = total(lambda: [flush() for _ in range(calls)])
-        us = us - flush_us if flush_us is not None else None
-    return us / calls / 1e3 if us is not None else None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warm, t0 = 0, time.perf_counter()
+        while not warm or time.perf_counter() - t0 < warmup_s:
+            if flush is not None:
+                flush()
+            fn()
+            warm += 1
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            if flush is not None:
+                flush()
+            with record_function(CALL_RANGE):
+                fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device: dict = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and (kernel is None or kernel in e.name)):
+            device.setdefault(e.id, []).append(e)
+
+    def launched(cpu_event) -> list:
+        out = []
+        for child in cpu_event.cpu_children:
+            if child.name.startswith("cu"):  # a CUDA API call
+                out += device.get(child.id, [])
+            out += launched(child)
+        return out
+
+    per_call = [[d.device_time_total for d in launched(e)]
+                for e in events if e.name == CALL_RANGE and e.device_type == DeviceType.CPU]
+    return per_call, warm, sum(map(len, device.values()))
+
+
+def kernel_device_ms(fn, torch, launches: int | None, label: str, calls: int = 20,
+                     kernel: str | None = "decide_match_kernel", flush=None) -> tuple:
+    """(device ms per call, device events per call) of ``fn``: the events
+    named ``kernel`` that each call launched, summed (every event with
+    ``kernel=None``; a sharded call counts all its shards). Every one of
+    the ``calls`` profiled calls must show ``launches`` such events (with
+    ``kernel=None``: one count alike in every call, above 0); a profile
+    short of that is taken again, three in all, and then the phase fails
+    with the counts. No other clock stands in for the device's."""
+    counts = []
+    for attempt, warmup_s in enumerate(PROFILE_WARMUP_S, 1):
+        per_call, warm, seen = call_events(fn, torch, calls, kernel, flush, warmup_s)
+        counts = [len(c) for c in per_call]
+        want = launches if kernel is not None else (counts[0] if counts else 0)
+        if len(counts) == calls and want and all(n == want for n in counts):
+            return sum(map(sum, per_call)) / calls / 1e3, want
+        print(f"device time {label}: profile {attempt} of 3 short: device events per call "
+              f"{counts}, {want if kernel is not None else 'one count alike'} expected; "
+              f"{seen} such events in the whole profile after {warm} unmeasured calls "
+              f"({warmup_s} s)")
+    fail(f"device time {label}: no complete device reading in 3 profiles (device events per "
+         f"call {counts}; {launches if kernel is not None else 'one count alike'} expected)")
 
 
 def device_times(timed: list, card: str, kernel: str | None = "decide_match_kernel") -> None:
     """The device times of ``timed``'s calls, read with the profiler after
     the main path has run (a profiler session can leave later launches
     slower on the host, which would skew the main path's host-clock
-    readings). ``timed`` holds (label, call, bound ms, back-to-back call
-    ms, record or None) from phases 3, 3b and 14; ``kernel`` names the
-    events counted (None: all of them). Each call is read twice: back to
-    back (the inputs of 64-77 MB partly stay in the 50 MiB L2, so this
-    can beat the bound, which reads every input from memory) and with the
-    L2 flushed before every call (``L2_FLUSH_BYTES`` read). Each record's
-    ``ms`` is the cold one, the time the bound is for; it falls back to
-    the back-to-back call time where the profiler sees no device time."""
+    readings). ``timed`` holds (label, call, device events per call or
+    None, bound ms, record or None) from phases 3, 3b and 14; ``kernel``
+    names the events counted (None: all of them). Each call is read three
+    times: back to back (the inputs of 64-77 MB partly stay in the 50 MiB
+    L2, so this can beat the bound, which reads every input from memory),
+    and with the L2 flushed before every call by writing and by reading
+    ``L2_FLUSH_BYTES``. Each record's ``ms`` is the colder flushed
+    reading, the time the bound is for."""
     import torch
 
     buf = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-
-    def flush():
-        buf.sum()
-
+    flushes = {"writing": buf.zero_, "reading": buf.sum}
     seen = "profiler" if kernel else "profiler, every device event of the call"
-    for label, fn, bound_ms, call_ms, record in timed:
-        warm_ms = kernel_device_ms(fn, torch, kernel=kernel)
-        cold_ms = kernel_device_ms(fn, torch, kernel=kernel, flush=flush)
-        ms = cold_ms if cold_ms is not None else call_ms
+    for label, fn, launches, bound_ms, record in timed:
+        warm_ms, n = kernel_device_ms(fn, torch, launches, label, kernel=kernel)
+        cold = {how: kernel_device_ms(fn, torch, launches, label, kernel=kernel, flush=f)[0]
+                for how, f in flushes.items()}
+        ms = max(cold.values())
         if record is not None:
             record["ms"] = ms
-        warm = (f"back to back {warm_ms:.4f} ms ({bound_ms / warm_ms * 100:.1f}%, reads "
-                f"served from L2 in part)" if warm_ms is not None else
-                "back to back: profiler saw no device time")
-        cold = (f"cold L2 {ms:.4f} ms ({seen})" if cold_ms is not None else
-                f"cold L2: profiler saw no device time, the back-to-back call's {ms:.4f} "
-                f"ms (events) in its place")
-        print(f"device time {label}: {cold}, {bound_ms / ms * 100:.1f}% of the bound rate; "
-              f"{warm} [{card}]")
+        print(f"device time {label}: cold L2 {ms:.4f} ms ({seen}; flushed by writing "
+              f"{cold['writing']:.4f} ms, by reading {cold['reading']:.4f} ms), "
+              f"{bound_ms / ms * 100:.1f}% of the bound rate; back to back {warm_ms:.4f} ms "
+              f"({bound_ms / warm_ms * 100:.1f}%, reads served from L2 in part); {n} device "
+              f"events a call in every profiled call [{card}]")
     del buf
 
 
@@ -585,8 +641,8 @@ def kernel_phase(rng, torch, dev, card: str, timed: list) -> dict:
         if name == "serving" and fleet:
             record = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
-        timed.append((label, lambda case=case, kw=kw: decide_and_match(*case, **kw),
-                      bound_ms, call_ms, record if name == "serving" and fleet else None))
+        timed.append((label, lambda case=case, kw=kw: decide_and_match(*case, **kw), 1,
+                      bound_ms, record if name == "serving" and fleet else None))
         torch.cuda.synchronize()
     return record
 
@@ -651,7 +707,7 @@ def sharded_kernel_phase(rng, torch, dev, card: str, timed: list) -> dict:
         timed.append((f"{text}, the {rf} launches summed",
                       lambda mesh=mesh, args=args, seg=seg:
                       decide_and_match_sharded(mesh, *args, **seg),
-                      bound_ms, call_ms, record if label == "serving" and spec == "4" else None))
+                      rf, bound_ms, record if label == "serving" and spec == "4" else None))
         torch.cuda.synchronize()
     return record
 
@@ -1743,11 +1799,11 @@ def suite_phase(torch, dev, card: str, timed: list, compiled_timed: list) -> int
               f"{compiled_ms / kernel_ms:.2f}x [{card}]")
         label = f"decide_and_match [phase 14 {name}]"
         if not kw:  # the serving shape's kernel is timed from phase 3
-            timed.append((label, lambda case=case: decide_and_match(*case), bound_ms,
-                          kernel_ms, None))
+            timed.append((label, lambda case=case: decide_and_match(*case), 1, bound_ms,
+                          None))
         compiled_timed.append((f"torch.compile(decide_and_match_plain) [phase 14 {name}]",
-                               lambda case=case, kw=kw: compiled(*case, **kw), bound_ms,
-                               compiled_ms, None))
+                               lambda case=case, kw=kw: compiled(*case, **kw), None, bound_ms,
+                               None))
     torch.cuda.synchronize()
     return launches
 
@@ -2200,6 +2256,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card: nothing to run", file=sys.stderr)
         sys.exit(2)
+    from kcp_tpu_torch import native
     from kcp_tpu_torch.bench import closed_loop
     from kcp_tpu_torch.models import reconcile_model as tm
     from kcp_tpu_torch.ops import cuda_kernels
@@ -2225,6 +2282,13 @@ def main() -> None:
         for line in cuda_kernels.build_info["log"].splitlines():
             if "registers" in line or "Compiling" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    # the port's host library and extension (g++, into build/kcp_tpu_torch/)
+    native.load()
+    native.load_tokenizer()
+    for name, info in native.build_info.items():
+        print(f"build: native {name}: {info['path']} in {info['seconds']:.2f} s" if "path" in info
+              else f"build: native {name} did not build or load ({info['error']}): its "
+                   f"callers take their Python path")
 
     # ---- 3. kernel vs plain, exact equality; the tile plans. No profiler
     #          runs before the main path (5, 5b): the kernels' device

@@ -9,6 +9,16 @@ Run from the repo root on a card:
 - ``python3 -m kcp_tpu_torch.chip_probe sweep`` — the fleet form's device
   time at the serving shape under other tile plans (blocks per SM, stage
   bytes, ring depth), each checked against the plain version;
+- ``python3 -m kcp_tpu_torch.chip_probe readings [REPEATS]`` — the
+  kernel's device time at the serving shape (fleet form, 3-output form,
+  mesh ``"4"``), REPEATS times (5 by default), read the plain way (one
+  profile of 20 back-to-back calls, no unmeasured call first,
+  ``key_averages``' sum over 20; back to back and with 256 MiB read
+  before each call), with the events that profile saw, and the way
+  ``chip_smoke.py`` reads it (``kernel_device_ms``: every call's events
+  counted) back to back and with the L2 flushed by reading 256 MiB, by
+  writing them, and by writing them and then reading another 256 MiB
+  (the L2 left clean, holding none of the inputs);
 - ``python3 -m kcp_tpu_torch.chip_probe ab TREE [TREE ...]`` — for each
   TREE (a checkout of this repo, say a parent commit unpacked with
   ``git archive`` into a git-ignored directory), in the order given and
@@ -110,7 +120,8 @@ def host(card: str) -> None:
     }
     for when in ("before any profiler session", "after a profiler session"):
         if when.startswith("after"):
-            cs.kernel_device_ms(lambda: ck.decide_and_match(*case, **forms["fleet"]), torch)
+            cs.kernel_device_ms(lambda: ck.decide_and_match(*case, **forms["fleet"]), torch, 1,
+                                "host probe")
         for form, kw in forms.items():
             enq, drained = _host_us(lambda: ck.decide_and_match(*case, **kw), torch)
             ev = cs.time_ms(lambda: ck.decide_and_match(*case, **kw), torch, 50)
@@ -146,15 +157,73 @@ def sweep(card: str) -> None:
             got = ck.decide_and_match(*case, **kw)
             if any(not torch.equal(g, w) for g, w in zip(got, want)):
                 raise SystemExit(f"sweep: plan {ck.last_plan} differs from the plain version")
-            ms = cs.kernel_device_ms(lambda: ck.decide_and_match(*case, **kw), torch)
-            shown = (f"{ms:.4f} ms ({bound_ms / ms * 100:.1f}% of the bound rate)" if ms
-                     else "not measured (profiler saw no device time)")
+            ms, _n = cs.kernel_device_ms(lambda: ck.decide_and_match(*case, **kw), torch, 1,
+                                         "sweep")
             print(f"sweep [serving, fleet form]: {bps} block(s) per SM, "
-                  f"{cs.plan_text(ck.last_plan)}: equal; kernel {shown} on the device"
+                  f"{cs.plan_text(ck.last_plan)}: equal; kernel {ms:.4f} ms "
+                  f"({bound_ms / ms * 100:.1f}% of the bound rate) on the device"
                   f"{' (default plan)' if (bps, target, stages) == default else ''} [{card}]")
     finally:
         ck.BLOCKS_PER_SM, ck.STAGE_TARGET, ck.MAX_STAGES = default
         ck._plan.cache_clear()
+
+
+def readings(card: str, repeats: int) -> None:
+    import numpy as np
+    import torch
+
+    from kcp_tpu_torch.ops import cuda_kernels as ck
+    from kcp_tpu_torch.parallel import mesh as pm
+
+    cs = _smoke()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2024)
+    case = cs.kernel_case(rng, SERVING_B, SERVING_S, 1, 8, True, torch, dev)
+    seg = cs.segments(rng, SERVING_B, torch, dev)
+    mesh = cs.smoke_mesh("4", dev)
+    layouts = (pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.REPLICATED, pm.FLAGS)
+    args = [pm.ShardedTensor.put(x, mesh, lay) for x, lay in zip((*case, seg), layouts)]
+    forms = {
+        "fleet form": (lambda: ck.decide_and_match(*case, seg_ids=seg,
+                                                   seg_capacity=cs.SEG_CAPACITY),
+                       1, cs.bound((*case, seg), ck.decide_and_match_plain(
+                           *case, seg_ids=seg, seg_capacity=cs.SEG_CAPACITY))[0]),
+        "3-output": (lambda: ck.decide_and_match(*case), 1,
+                     cs.bound(case, ck.decide_and_match_plain(*case))[0]),
+        "mesh 4": (lambda: ck.decide_and_match_sharded(mesh, *args,
+                                                       seg_capacity=cs.SEG_CAPACITY),
+                   pm.row_factor(mesh), cs.bound((*case, seg), ck.decide_and_match_plain(
+                       *case, seg_ids=seg, seg_capacity=cs.SEG_CAPACITY),
+                       shards=pm.row_factor(mesh))[0]),
+    }
+    buf = torch.ones(cs.L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    other = torch.ones_like(buf)
+    flushes = {"back to back": None, "L2 flushed by reading": buf.sum,
+               "by writing": buf.zero_,
+               "by writing, then reading another 256 MiB": lambda: (buf.zero_(), other.sum())}
+
+    def earlier(fn, flush) -> str:
+        run = (lambda: [fn() for _ in range(20)]) if flush is None else (
+            lambda: [(flush(), fn()) for _ in range(20)])
+        _wall, ev = cs.device_profile(run, torch)
+        seen = sum(n for k, (n, _us) in ev.items() if "decide_match_kernel" in k)
+        us = sum(us for k, (_n, us) in ev.items() if "decide_match_kernel" in k)
+        return f"{us / 20 / 1e3:.4f} ms from {seen} kernel events"
+
+    for rep in range(repeats):
+        for form, (fn, launches, bound_ms) in forms.items():
+            for _ in range(3):
+                fn()
+            old = (f"back to back {earlier(fn, None)}, L2 flushed by reading "
+                   f"{earlier(fn, buf.sum)}")
+            new = []
+            for how, flush in flushes.items():
+                ms, _n = cs.kernel_device_ms(fn, torch, launches, form, flush=flush)
+                new.append(f"{how} {ms:.4f} ms ({bound_ms / ms * 100:.1f}%)")
+            print(f"readings {rep + 1}/{repeats} [serving, {form}; {20 * launches} kernel "
+                  f"events a reading]: one profile over 20 calls: {old}; as chip_smoke.py reads it "
+                  f"({launches} event(s) in each of 20 calls): " + ", ".join(new)
+                  + f"; bound {bound_ms:.5f} ms [{card}]", flush=True)
 
 
 def _phase_means(before: dict, after: dict) -> dict:
@@ -317,7 +386,7 @@ def lanes(pairs: int, log_path: str = os.devnull) -> None:
 
 
 def main(argv: list[str]) -> None:
-    if not argv or argv[0] not in ("host", "sweep", "ab", "measure", "lanes"):
+    if not argv or argv[0] not in ("host", "sweep", "readings", "ab", "measure", "lanes"):
         raise SystemExit(__doc__)
     if argv[0] == "measure":
         measure(argv[1], float(argv[2]))
@@ -338,6 +407,8 @@ def main(argv: list[str]) -> None:
         host(card)
     elif argv[0] == "sweep":
         sweep(card)
+    elif argv[0] == "readings":
+        readings(card, int(argv[1]) if len(argv) > 1 else 5)
     else:
         ab(argv[1:], float(os.environ.get("KCP_PROBE_SECONDS", "8")), card)
 

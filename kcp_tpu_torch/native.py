@@ -1,9 +1,10 @@
 """ctypes loader for the repo's native library (the port's copy of
 ``kcp_tpu/native/__init__.py``).
 
-It builds ``native/libkcpnative.so`` at the repo root with ``make`` when
-the library is missing or older than its sources, loads it, and declares
-the symbols the port calls: the work queue (``wq_*``,
+It compiles the sources under ``native/`` at the repo root with ``g++``
+(``native/Makefile``'s flags) into ``build/kcp_tpu_torch/`` when no
+library built from these very sources and flags is there, loads it, and
+declares the symbols the port calls: the work queue (``wq_*``,
 :class:`kcp_tpu_torch.reconciler.fairqueue.FairWorkQueue`), the durable
 WAL engine (``ws_*``, :class:`WalEngine`, the store's native backend) and
 the slot-vocabulary encoder (``enc_*``, :class:`NativeBucket`, the fast
@@ -14,32 +15,88 @@ native tiers of :func:`kcp_tpu_torch.ops.schemahash.tokenize_schemas`).
 If the build or the load fails, :func:`load` returns ``None`` and every
 caller falls back to its pure-Python path. ``KCP_TPU_NO_NATIVE=1`` forces
 that fallback.
+
+The loader never writes under ``native/``: the reference's loader runs
+``make`` there, and processes of both packages would otherwise build the
+same objects in place while others load them. A library's file name
+carries a hash of the sources, the flags and (for the extension) the
+interpreter's ABI, so a changed source builds anew whatever the files'
+times say. Processes share one build through an ``flock`` on
+``BUILD_DIR/native.lock``; each compiles to a file of its own and moves
+it into place, so a library path that exists is whole.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
+import sysconfig
+import time
 from typing import Iterator
 
 from .analysis.sanitize import make_lock
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "native")
-_LIB_NAME = "libkcpnative.so"
+_REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_NATIVE_DIR = os.path.join(_REPO_DIR, "native")
+BUILD_DIR = os.path.join(_REPO_DIR, "build", "kcp_tpu_torch")
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
+# native/Makefile's OBJS; kcptok.cc is the extension's alone
+_LIB_SOURCES = ("jsoncanon.cc", "walstore.cc", "encode.cc", "workqueue.cc")
 
 _lock = make_lock("native.load")
 _lib: ctypes.CDLL | None = None
 _load_attempted = False
+#: what each library's build did: {"path", "seconds"} (0.0 where a library
+#: built from these very sources was reused; a wait for another process's
+#: build counts), or {"error"} where the build or the load failed
+build_info: dict[str, dict] = {}
 
 
-def _sources_newer_than_lib(lib_path: str) -> bool:
-    lib_mtime = os.path.getmtime(lib_path)
-    for fn in os.listdir(_NATIVE_DIR):
-        if (fn.endswith((".cc", ".h"))
-                and os.path.getmtime(os.path.join(_NATIVE_DIR, fn)) > lib_mtime):
-            return True
-    return False
+def _source_key(*extra: str) -> str:
+    """A hash of every ``*.cc`` and ``*.h`` under ``native/``, the flags
+    and ``extra``."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(_NATIVE_DIR)):
+        if name.endswith((".cc", ".h")):
+            h.update(name.encode() + b"\0")
+            with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
+                h.update(f.read())
+    h.update("\0".join((*CXX_FLAGS, *extra)).encode())
+    return h.hexdigest()[:16]
+
+
+def _build(stem: str, sources: tuple, flags: tuple = (), abi: str = "") -> str:
+    """The path of ``BUILD_DIR/<stem>-<key>.so``, compiled from ``sources``
+    with ``CXX_FLAGS + flags`` unless it is there; raises where the
+    compiler fails. The check and the build hold the build directory's
+    lock, so one process builds and the others wait and load its file."""
+    path = os.path.join(BUILD_DIR, f"{stem}-{_source_key(*flags, abi)}.so")
+    if os.path.exists(path):
+        build_info[stem] = {"path": path, "seconds": 0.0}
+        return path
+    t0 = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            try:
+                # the compiler's own temporaries stay in the build directory too
+                subprocess.run(
+                    ["g++", *CXX_FLAGS, *flags, "-o", tmp,
+                     *(os.path.join(_NATIVE_DIR, s) for s in sources)],
+                    check=True, capture_output=True, timeout=120,
+                    env={**os.environ, "TMPDIR": BUILD_DIR})
+                os.replace(tmp, path)
+            finally:
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(tmp)
+    build_info[stem] = {"path": path, "seconds": time.perf_counter() - t0}
+    return path
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -159,19 +216,12 @@ def load() -> ctypes.CDLL | None:
         if _load_attempted:
             return _lib
         _load_attempted = True
-        lib_path = os.path.join(_NATIVE_DIR, _LIB_NAME)
         try:
-            if not os.path.exists(lib_path) or _sources_newer_than_lib(lib_path):
-                subprocess.run(
-                    ["make", "-s", "-C", _NATIVE_DIR],
-                    check=True, capture_output=True, timeout=120,
-                )
-            # each CDLL object keeps its own function objects, so these
-            # declarations never touch another loader's of the same file
-            lib = ctypes.CDLL(lib_path)
+            lib = ctypes.CDLL(_build("libkcpnative", _LIB_SOURCES))
             _declare(lib)
             _lib = lib
-        except (OSError, subprocess.SubprocessError, AttributeError):
+        except (OSError, subprocess.SubprocessError, AttributeError) as e:
+            build_info["libkcpnative"] = {"error": repr(e)}
             _lib = None
         return _lib
 
@@ -389,18 +439,11 @@ def load_tokenizer():
         if _tok_tried:
             return _tok_mod
         _tok_tried = True
-        path = os.path.join(_NATIVE_DIR, "kcptok.so")
         try:
-            if not os.path.exists(path) or _sources_newer_than_lib(path):
-                import sysconfig
-
-                # compile against THIS interpreter's headers: the
-                # Makefile's PATH python3 could have another ABI
-                subprocess.run(
-                    ["make", "-s", "-C", _NATIVE_DIR, "kcptok.so",
-                     f"PYINC={sysconfig.get_paths()['include']}"],
-                    check=True, capture_output=True, timeout=120,
-                )
+            # compiled against THIS interpreter's headers and named by its ABI
+            path = _build("kcptok", ("kcptok.cc",),
+                          (f"-I{sysconfig.get_paths()['include']}",),
+                          sysconfig.get_config_var("SOABI") or "")
             import importlib.machinery
             import importlib.util
 
@@ -409,7 +452,8 @@ def load_tokenizer():
             mod = importlib.util.module_from_spec(spec)
             loader.exec_module(mod)
             _tok_mod = mod
-        except Exception:  # noqa: BLE001 — any failure means the next tier
+        except Exception as e:  # noqa: BLE001 — any failure means the next tier
+            build_info["kcptok"] = {"error": repr(e)}
             _tok_mod = None
         return _tok_mod
 

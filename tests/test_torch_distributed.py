@@ -176,8 +176,9 @@ def form_world_of_two() -> None:
             "import torch.distributed as dist\n"
             "from kcp_tpu_torch.parallel.distributed import init_distributed\n"
             "kw = init_distributed(device='cpu'); init_distributed(device='cpu')\n"
-            "print(json.dumps([kw, dist.get_world_size(), dist.get_rank(), "
-            "dist.get_backend()]))\n" % REPO)
+            "got = [kw, dist.get_world_size(), dist.get_rank(), dist.get_backend()]\n"
+            "dist.destroy_process_group()\n"
+            "print(json.dumps(got))\n" % REPO)
     for rank, (kw, world, r, backend) in enumerate(run_ranks(code)):
         assert kw["world_size"] == 2 and kw["rank"] == rank, kw
         assert kw["init_method"].startswith("tcp://127.0.0.1:"), kw
@@ -189,6 +190,7 @@ import json, sys
 sys.path.insert(0, REPO)
 import numpy as np, torch
 torch.set_num_threads(1)
+import torch.distributed as dist
 from kcp_tpu_torch.fleet import solver
 from kcp_tpu_torch.parallel import mesh as pmesh
 from kcp_tpu_torch.parallel.distributed import init_distributed
@@ -198,6 +200,7 @@ x = np.load(CASE)
 mesh = pmesh.mesh_from_spec("2x2x1", devices=["cpu"] * 2)
 out = solver.solve_sharded(mesh, x["demand"], x["cand"], x["alloc"], x["region"],
                            x["home"], 2)
+dist.destroy_process_group()
 print(json.dumps([out.dtype.str, list(out.shape), out.tobytes().hex()]))
 """
 
@@ -267,6 +270,7 @@ import asyncio, hashlib, json, sys
 sys.path[:0] = [REPO, TESTS]
 import torch
 torch.set_num_threads(1)
+import torch.distributed as dist
 from kcp_tpu_torch.parallel import mesh as pmesh
 from kcp_tpu_torch.parallel.distributed import init_distributed
 from test_torch_core import _lockstep
@@ -274,6 +278,7 @@ from test_torch_core import _lockstep
 init_distributed(device="cpu")
 mesh = pmesh.mesh_from_spec("2x2x1", devices=["cpu"] * 2)
 stream, ticks = asyncio.run(_lockstep("torch", "double", FLEET, 9, mesh=mesh))
+dist.destroy_process_group()
 print(json.dumps([hashlib.sha256(stream).hexdigest(), len(stream), ticks]))
 """
 

@@ -26,7 +26,7 @@ from kcp_tpu_torch import native as port_native
 from kcp_tpu_torch.ops import schemahash as port_sh
 from kcp_tpu_torch.ops.hashing import canonical_json
 
-from test_torch_engine import _cases, port_module
+from test_torch_engine import _cases, native_libraries, port_module
 
 MIRRORED = _cases("test_schemahash.py")
 
@@ -105,7 +105,8 @@ def _corpus(seed: int) -> list:
 
 
 @pytest.mark.parametrize("max_tokens", [8, 256])
-def test_tokenizer_tiers_bit_equal_to_the_reference(max_tokens):
+def test_tokenizer_tiers_bit_equal_to_the_reference(max_tokens, monkeypatch):
+    native_libraries(monkeypatch)
     schemas = _corpus(max_tokens)
     want = np.stack([ref_sh.tokenize_schema_py(s, max_tokens) for s in schemas])
     # tier 3: the Python walk
