@@ -5,20 +5,29 @@ Run from the repo root on a card:
 - ``python3 -m kcp_tpu_torch.chip_probe host`` — the host cost of one
   ``decide_and_match`` call at the serving shape, 3-output and fleet
   form, whole and piece by piece (check, tile plan, output allocation,
-  device and stream lookup), before and after a torch.profiler session;
+  device and stream lookup, the launch), and of one
+  ``decide_and_match_sharded`` call over mesh ``"4"`` (fleet form), before
+  and after a torch.profiler session;
+- ``python3 -m kcp_tpu_torch.chip_probe host TREE [TREE ...]`` — for each
+  TREE, in a process of its own and in the order given (parent, change,
+  change, parent to compare two commits): the host µs of one call of the
+  public wrappers at the serving shape (fleet form, 3-output form,
+  ``decide_and_match_sharded`` over mesh ``"4"``) and their launches per call;
 - ``python3 -m kcp_tpu_torch.chip_probe sweep`` — the fleet form's device
   time at the serving shape under other tile plans (blocks per SM, stage
   bytes, ring depth), each checked against the plain version;
-- ``python3 -m kcp_tpu_torch.chip_probe readings [REPEATS]`` — the
+- ``python3 -m kcp_tpu_torch.chip_probe readings [REPEATS [TREE ...]]`` — the
   kernel's device time at the serving shape (fleet form, 3-output form,
-  mesh ``"4"``), REPEATS times (5 by default), read the plain way (one
+  mesh ``"4"``) and at the suite lane's (bucket-wide mask, L=8, C=64,
+  3-output form), REPEATS times (5 by default), read the plain way (one
   profile of 20 back-to-back calls, no unmeasured call first,
   ``key_averages``' sum over 20; back to back and with 256 MiB read
   before each call), with the events that profile saw, and the way
   ``chip_smoke.py`` reads it (``kernel_device_ms``: every call's events
   counted) back to back and with the L2 flushed by reading 256 MiB, by
   writing them, and by writing them and then reading another 256 MiB
-  (the L2 left clean, holding none of the inputs);
+  (the L2 left clean, holding none of the inputs). With TREEs, each
+  TREE's package is read so in a process of its own, in the order given;
 - ``python3 -m kcp_tpu_torch.chip_probe ab TREE [TREE ...]`` — for each
   TREE (a checkout of this repo, say a parent commit unpacked with
   ``git archive`` into a git-ignored directory), in the order given and
@@ -86,11 +95,77 @@ def _host_us(fn, torch, n: int = 300) -> tuple[float, float]:
     return (t1 - t0) / n * 1e6, (t2 - t0) / n * 1e6
 
 
+def _use_tree(tree: str) -> str:
+    """Import ``kcp_tpu_torch`` from ``tree`` in this process."""
+    tree = os.path.abspath(tree)
+    sys.path[:] = [tree] + [p for p in sys.path[1:]
+                            if os.path.abspath(p or ".") not in (REPO, tree)]
+    import kcp_tpu_torch
+
+    if not kcp_tpu_torch.__file__.startswith(tree + os.sep):
+        raise SystemExit(f"loaded {kcp_tpu_torch.__file__}, not the package in {tree}")
+    return tree
+
+
+def _serving_calls(torch, ck, pm, dev) -> dict:
+    """The public wrappers' calls at the serving shape: name -> call."""
+    import numpy as np
+
+    cs = _smoke()
+    rng = np.random.default_rng(2024)
+    case = cs.kernel_case(rng, SERVING_B, SERVING_S, 1, 8, True, torch, dev)
+    seg = cs.segments(rng, SERVING_B, torch, dev)
+    mesh = cs.smoke_mesh("4", dev)
+    layouts = (pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.REPLICATED, pm.FLAGS)
+    args = [pm.ShardedTensor.put(x, mesh, lay) for x, lay in zip((*case, seg), layouts)]
+    return {
+        "fleet": lambda: ck.decide_and_match(*case, seg_ids=seg, seg_capacity=cs.SEG_CAPACITY),
+        "3-output": lambda: ck.decide_and_match(*case),
+        "mesh 4": lambda: ck.decide_and_match_sharded(mesh, *args,
+                                                      seg_capacity=cs.SEG_CAPACITY),
+    }
+
+
+def host_calls(tree: str) -> None:
+    """One tree's host µs per public wrapper call (run in a process of its
+    own by ``host TREE ...``)."""
+    tree = _use_tree(tree)
+    import torch
+
+    from kcp_tpu_torch.ops import cuda_kernels as ck
+    from kcp_tpu_torch.parallel import mesh as pm
+
+    rec = {"tree": tree}
+    for name, fn in _serving_calls(torch, ck, pm, torch.device("cuda")).items():
+        before = ck.decide_and_match.launches + ck.decide_and_match_sharded.launches
+        enq, drained = _host_us(fn, torch)
+        launched = ck.decide_and_match.launches + ck.decide_and_match_sharded.launches - before
+        rec[name] = dict(host_us=enq, drained_us=drained, launches_per_call=launched / 320)
+    print(json.dumps(rec))
+
+
+def host_ab(trees: list[str], card: str) -> None:
+    runs = []
+    for tree in trees:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "host-calls", tree],
+                              capture_output=True, text=True, timeout=600, cwd=REPO)
+        if proc.returncode != 0:
+            raise SystemExit(f"host: {tree} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]))
+    for name in ("fleet", "3-output", "mesh 4"):
+        print(f"host {name}: " + ", ".join(
+            f"{os.path.relpath(r['tree'], REPO)} {r[name]['host_us']:.1f} us "
+            f"({r[name]['launches_per_call']:g} launches a call)" for r in runs)
+            + f" per call on the host [{card}]")
+
+
 def host(card: str) -> None:
     import numpy as np
     import torch
 
     from kcp_tpu_torch.ops import cuda_kernels as ck
+    from kcp_tpu_torch.parallel import mesh as pm
 
     cs = _smoke()
     dev = torch.device("cuda")
@@ -111,13 +186,15 @@ def host(card: str) -> None:
 
     pieces = {
         "_check": lambda: ck._check(*case, seg),
-        "_tile_plan": lambda: ck._tile_plan(b, SERVING_S, 1, 8, True, ptrs, True,
-                                            cs.SEG_CAPACITY, sms),
+        "_group_plan": lambda: ck._group_plan(
+            ((b, ck._aligned(ptrs, ck._row_bytes(SERVING_S, 1, True, True))),),
+            SERVING_S, 1, 8, True, True, cs.SEG_CAPACITY, sms),
         "torch.zeros([8])": lambda: torch.zeros(8, dtype=torch.int32, device=dev),
         "torch.empty([B])": lambda: torch.empty(b, dtype=torch.uint8, device=dev),
         "device + stream": stream,
-        "_launch (fleet, counts given)": lambda: ck._launch(*case, counts, seg, seg_counts),
+        "_launch (fleet, counts given)": lambda: ck._launch([(*case, seg)], counts, seg_counts),
     }
+    sharded = _serving_calls(torch, ck, pm, dev)["mesh 4"]
     for when in ("before any profiler session", "after a profiler session"):
         if when.startswith("after"):
             cs.kernel_device_ms(lambda: ck.decide_and_match(*case, **forms["fleet"]), torch, 1,
@@ -128,6 +205,9 @@ def host(card: str) -> None:
             print(f"host [{when}] decide_and_match {form}: {enq:.1f} us per call on the host, "
                   f"{drained:.1f} us with the device drained, {ev * 1e3:.1f} us per "
                   f"back-to-back call (events) [{card}]")
+        enq, drained = _host_us(sharded, torch)
+        print(f"host [{when}] decide_and_match_sharded mesh 4, fleet: {enq:.1f} us per call on "
+              f"the host, {drained:.1f} us with the device drained [{card}]")
         for name, fn in pieces.items():
             enq, _ = _host_us(fn, torch)
             print(f"host [{when}] piece {name}: {enq:.1f} us per call [{card}]")
@@ -153,7 +233,7 @@ def sweep(card: str) -> None:
     try:
         for bps, target, stages in variants:
             ck.BLOCKS_PER_SM, ck.STAGE_TARGET, ck.MAX_STAGES = bps, target, stages
-            ck._plan.cache_clear()
+            ck._group_plan.cache_clear()
             got = ck.decide_and_match(*case, **kw)
             if any(not torch.equal(g, w) for g, w in zip(got, want)):
                 raise SystemExit(f"sweep: plan {ck.last_plan} differs from the plain version")
@@ -165,7 +245,7 @@ def sweep(card: str) -> None:
                   f"{' (default plan)' if (bps, target, stages) == default else ''} [{card}]")
     finally:
         ck.BLOCKS_PER_SM, ck.STAGE_TARGET, ck.MAX_STAGES = default
-        ck._plan.cache_clear()
+        ck._group_plan.cache_clear()
 
 
 def readings(card: str, repeats: int) -> None:
@@ -183,18 +263,19 @@ def readings(card: str, repeats: int) -> None:
     mesh = cs.smoke_mesh("4", dev)
     layouts = (pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.REPLICATED, pm.FLAGS)
     args = [pm.ShardedTensor.put(x, mesh, lay) for x, lay in zip((*case, seg), layouts)]
-    forms = {
+    suite = cs.kernel_case(rng, SERVING_B, SERVING_S, 8, 64, False, torch, dev)
+    fleet_bound = cs.bound((*case, seg), ck.decide_and_match_plain(
+        *case, seg_ids=seg, seg_capacity=cs.SEG_CAPACITY))[0]
+    forms = {  # form -> (call, bound ms)
         "fleet form": (lambda: ck.decide_and_match(*case, seg_ids=seg,
-                                                   seg_capacity=cs.SEG_CAPACITY),
-                       1, cs.bound((*case, seg), ck.decide_and_match_plain(
-                           *case, seg_ids=seg, seg_capacity=cs.SEG_CAPACITY))[0]),
-        "3-output": (lambda: ck.decide_and_match(*case), 1,
+                                                   seg_capacity=cs.SEG_CAPACITY), fleet_bound),
+        "3-output": (lambda: ck.decide_and_match(*case),
                      cs.bound(case, ck.decide_and_match_plain(*case))[0]),
         "mesh 4": (lambda: ck.decide_and_match_sharded(mesh, *args,
                                                        seg_capacity=cs.SEG_CAPACITY),
-                   pm.row_factor(mesh), cs.bound((*case, seg), ck.decide_and_match_plain(
-                       *case, seg_ids=seg, seg_capacity=cs.SEG_CAPACITY),
-                       shards=pm.row_factor(mesh))[0]),
+                   fleet_bound),
+        "suite": (lambda: ck.decide_and_match(*suite),
+                  cs.bound(suite, ck.decide_and_match_plain(*suite))[0]),
     }
     buf = torch.ones(cs.L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     other = torch.ones_like(buf)
@@ -210,8 +291,14 @@ def readings(card: str, repeats: int) -> None:
         us = sum(us for k, (_n, us) in ev.items() if "decide_match_kernel" in k)
         return f"{us / 20 / 1e3:.4f} ms from {seen} kernel events"
 
+    def launches_of(fn) -> int:  # kernel launches of one call (a parent tree's may be several)
+        before = ck.decide_and_match.launches + ck.decide_and_match_sharded.launches
+        fn()
+        return ck.decide_and_match.launches + ck.decide_and_match_sharded.launches - before
+
     for rep in range(repeats):
-        for form, (fn, launches, bound_ms) in forms.items():
+        for form, (fn, bound_ms) in forms.items():
+            launches = launches_of(fn)
             for _ in range(3):
                 fn()
             old = (f"back to back {earlier(fn, None)}, L2 flushed by reading "
@@ -220,10 +307,22 @@ def readings(card: str, repeats: int) -> None:
             for how, flush in flushes.items():
                 ms, _n = cs.kernel_device_ms(fn, torch, launches, form, flush=flush)
                 new.append(f"{how} {ms:.4f} ms ({bound_ms / ms * 100:.1f}%)")
-            print(f"readings {rep + 1}/{repeats} [serving, {form}; {20 * launches} kernel "
+            print(f"readings {rep + 1}/{repeats} [{form}; {20 * launches} kernel "
                   f"events a reading]: one profile over 20 calls: {old}; as chip_smoke.py reads it "
                   f"({launches} event(s) in each of 20 calls): " + ", ".join(new)
                   + f"; bound {bound_ms:.5f} ms [{card}]", flush=True)
+
+
+def readings_ab(trees: list[str], repeats: int) -> None:
+    for tree in trees:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "readings-in", tree,
+                               str(repeats)], capture_output=True, text=True, timeout=1200,
+                              cwd=REPO)
+        if proc.returncode != 0:
+            raise SystemExit(f"readings: {tree} failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+        for line in proc.stdout.strip().splitlines():
+            print(f"{os.path.relpath(os.path.abspath(tree), REPO)}: {line}", flush=True)
 
 
 def _phase_means(before: dict, after: dict) -> dict:
@@ -241,21 +340,16 @@ def _phase_means(before: dict, after: dict) -> dict:
 
 def measure(tree: str, seconds: float, device: str = "cuda", b: int = SERVING_B) -> None:
     """One tree's readings (run in a process of its own by ``ab``)."""
-    tree = os.path.abspath(tree)
-    sys.path[:] = [tree] + [p for p in sys.path[1:]
-                            if os.path.abspath(p or ".") not in (REPO, tree)]
+    tree = _use_tree(tree)
     import numpy as np
     import torch
 
-    import kcp_tpu_torch
     from kcp_tpu_torch.bench import closed_loop
     from kcp_tpu_torch.models import reconcile_model as tm
     from kcp_tpu_torch.parallel.mesh import FLAGS, ShardedTensor, shard_state
     from kcp_tpu_torch.syncer.core import FusedCore
     from kcp_tpu_torch.utils.trace import REGISTRY
 
-    if not kcp_tpu_torch.__file__.startswith(tree + os.sep):
-        raise SystemExit(f"measure: loaded {kcp_tpu_torch.__file__}, not the package in {tree}")
     cs = _smoke()
     dev = torch.device(device)
     s = SERVING_S
@@ -386,11 +480,18 @@ def lanes(pairs: int, log_path: str = os.devnull) -> None:
 
 
 def main(argv: list[str]) -> None:
-    if not argv or argv[0] not in ("host", "sweep", "readings", "ab", "measure", "lanes"):
+    if not argv or argv[0] not in ("host", "sweep", "readings", "ab", "measure", "lanes",
+                                   "host-calls", "readings-in"):
         raise SystemExit(__doc__)
     if argv[0] == "measure":
         measure(argv[1], float(argv[2]))
         return
+    if argv[0] == "host-calls":
+        host_calls(argv[1])
+        return
+    if argv[0] == "readings-in":  # one TREE of ``readings REPEATS TREE ...``
+        _use_tree(argv[1])
+        argv = ["readings", argv[2]]
     if argv[0] == "lanes":
         from kcp_tpu_torch.bench import card_line
 
@@ -404,11 +505,12 @@ def main(argv: list[str]) -> None:
     card = _smoke().card_line()
     print(card)
     if argv[0] == "host":
-        host(card)
+        host_ab(argv[1:], card) if argv[1:] else host(card)
     elif argv[0] == "sweep":
         sweep(card)
     elif argv[0] == "readings":
-        readings(card, int(argv[1]) if len(argv) > 1 else 5)
+        repeats = int(argv[1]) if len(argv) > 1 else 5
+        readings_ab(argv[2:], repeats) if argv[2:] else readings(card, repeats)
     else:
         ab(argv[1:], float(os.environ.get("KCP_PROBE_SECONDS", "8")), card)
 

@@ -5,9 +5,13 @@
 // Replaces the Pallas TPU kernel kcp_tpu/ops/pallas_kernels.py
 // decide_and_match (body _decide_match_kernel, pl.pallas_call at :184), and
 // with it the drop-mode segment add that follows it in the fleet step
-// (kcp_tpu/models/reconcile_model.py reconcile_step_fleet, :433-434).
+// (kcp_tpu/models/reconcile_model.py reconcile_step_fleet, :433-434). One
+// launch takes a group of up to kMaxShards row shards that lie on one card,
+// which replaces decide_and_match_sharded (:223-271: a shard_map of the
+// kernel above, one launch per row shard, and a psum of the counts): the
+// counts of the group's shards are summed in the kernel's histograms.
 //
-// What it computes, per row r of B rows with S slots:
+// What it computes, per row r of each shard's rows, S slots a row:
 //   decision[r] = CREATE(1) if up exists and down does not,
 //                 DELETE(3) if down exists and up does not,
 //                 UPDATE(2) if both exist and a spec slot differs,
@@ -31,9 +35,17 @@
 // asks for ~15-20 KB) without spending threads or registers on addresses.
 //   - Persistent grid: two blocks per SM (the host's plan; measured
 //     against one block with a deeper ring, which its own consumers pace);
-//     block k walks row tiles t = k, k + grid, ... A tile is T consecutive
-//     rows, T a multiple of 16, so each input's tile is one contiguous byte
-//     range whose size and start are multiples of 16.
+//     block k walks the group's tiles t = k, k + grid, ... A tile is T
+//     consecutive rows of one shard, T a multiple of 16, so each input's
+//     tile is one contiguous byte range whose size and start are multiples
+//     of 16. The global tile order puts every bulk tile first (shard 0's,
+//     then shard 1's, ...), then every plain-path tile in shard order;
+//     producer and consumers map a tile to its shard with one function
+//     (locate), and the ring's stage and phase run on across shards.
+//   - The group table (a kMaxShards array of shard descriptors) lies in the
+//     launch parameters as a __grid_constant__, so the kernel indexes it
+//     with a runtime shard number in place: no local-memory copy, and
+//     nothing is copied to the card per call.
 //   - A ring of `stages` tiles in shared memory, fed by one elected
 //     producer thread with one 1-D bulk copy per range
 //     (cp.async.bulk ... mbarrier::complete_tx::bytes; no tensor map). The
@@ -43,23 +55,24 @@
 //     refills the stage. Each side keeps its phase parity in a register.
 //   - Consumers read the tile as a flat run of T*S slots in 16-byte
 //     vectors (4 up, 4 down). Only a vector that differs costs more: each
-//     differing slot looks up its status-mask byte (per-row tile, or the
-//     bucket-wide [S] mask copied into shared memory once per block) and
+//     differing slot looks up its status-mask byte (per-row tile, or its
+//     shard's own copy of the bucket-wide [S] mask in global memory) and
 //     ORs spec (1) or status (2) into its row's flag word in shared memory.
 //     After one barrier among the consumers, one thread per row writes
 //     decision and upsync (coalesced) and counts its segment into a shared
 //     [cap] histogram (one atomic per distinct segment per warp), and the
 //     (row, selector) pairs of the tile are spread over all consumers,
 //     adding hits into a shared [C] histogram.
-//   - At its end a block adds each non-zero bin of both histograms into the
-//     global [C] and [cap] outputs: ~grid*(C + cap) integer atomics per
-//     call, exact in any order, so the kernel agrees with the plain PyTorch
-//     version bit for bit.
+//   - The histograms are zeroed once per block and, at its end, the block
+//     adds each non-zero bin into the global [C] and [cap] outputs, over
+//     every tile of every shard it took: ~grid*(C + cap) integer atomics
+//     per call, exact in any order, so the counts are the group's sum and
+//     the kernel agrees with the plain PyTorch version bit for bit.
 //   - Rows the bulk path cannot take go through a plain-load path in this
-//     kernel: the last partial tile, every tile of a call whose base
-//     pointers are not 16-byte aligned, and every tile when S is so large
-//     that two stages of 16 rows do not fit. The host makes the plan
-//     (kcp_tpu_torch/ops/cuda_kernels.py _tile_plan) and passes it in.
+//     kernel: each shard's last partial tile, every tile of a shard whose
+//     base pointers are not 16-byte aligned, and every tile when S is so
+//     large that two stages of 16 rows do not fit. The host makes the plan
+//     (kcp_tpu_torch/ops/cuda_kernels.py _group_plan) and passes it in.
 //   - Every wait on an mbarrier traps after ~2^34 cycles, so a fault in
 //     the pipeline fails the launch instead of hanging the card.
 // Plain C entry point, built with nvcc and loaded with ctypes. The launch
@@ -75,30 +88,58 @@ constexpr int kConsumerWarps = 8;
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
 constexpr int kMaxStages = 8;
+constexpr int kMaxShards = 16;  // shards one launch takes (cuda_kernels.MAX_SHARDS)
 constexpr unsigned kBarBytes = 2 * kMaxStages * 8;  // full + empty mbarriers
 constexpr long long kWaitTrapCycles = 1LL << 34;
 
-struct Params {
+// One row shard of a launch: its inputs and outputs, rows and tiles.
+struct Shard {
   const int32_t* up;
   const int32_t* down;
   const uint8_t* up_exists;
   const uint8_t* down_exists;
-  const uint8_t* mask;
-  long long mask_stride;  // S for the per-row [B, S] mask, 0 for [S]
+  const uint8_t* mask;  // [rows, S] per row, or the bucket-wide [S]
   const int32_t* pair;
-  const int32_t* sel;
   const int32_t* seg;  // null outside the fleet form
   uint8_t* decision;
   uint8_t* upsync;
-  int32_t* counts;
-  int32_t* seg_counts;
   long long rows;
-  int s, l, c, cap;
-  int tile;                // T rows per tile
-  int stages;              // ring depth (0: no bulk tiles)
-  long long bulk_tiles;    // tiles [0, bulk_tiles) come through bulk copies
-  long long tiles;         // ceil(rows / T)
+  long long bulk_tiles;   // its tiles [0, bulk_tiles) come through bulk copies
+  long long bulk_first;   // global index of its first bulk tile
+  long long plain_first;  // its first plain-path tile among the group's
 };
+
+struct Params {
+  Shard shard[kMaxShards];
+  int n;                  // shards in the group
+  const int32_t* sel;     // the group's replicated [C] selectors
+  int32_t* counts;
+  int32_t* seg_counts;    // null outside the fleet form
+  long long mask_stride;  // S for the per-row [rows, S] mask, 0 for [S]
+  int s, l, c, cap;
+  int tile;               // T rows per tile
+  int stages;             // ring depth (0: no bulk tiles)
+  long long bulk_tiles;   // global tiles [0, bulk_tiles) are bulk-copied
+  long long tiles;        // every shard's ceil(rows / T), summed
+};
+
+// Where global tile t lies: its shard and the shard's own tile index. The
+// producer and the consumers both map tiles through this function alone.
+struct Loc {
+  int k;
+  long long tile;
+};
+
+__device__ __forceinline__ Loc locate(const Params& p, long long t) {
+  const bool bulk = t < p.bulk_tiles;
+  const long long u = bulk ? t : t - p.bulk_tiles;
+  int k = 0;  // the last shard whose first tile is at or before u
+  while (k + 1 < p.n &&
+         u >= (bulk ? p.shard[k + 1].bulk_first : p.shard[k + 1].plain_first))
+    ++k;
+  const Shard& sh = p.shard[k];
+  return {k, bulk ? u - sh.bulk_first : sh.bulk_tiles + (u - sh.plain_first)};
+}
 
 // Byte offsets of one stage: up, down, mask, exists, pair, seg.
 struct StageLayout {
@@ -121,22 +162,19 @@ __host__ __device__ inline StageLayout stage_layout(int t, int s, int l,
 }
 
 // Byte offsets of a block's shared memory: mbarriers, two row-flag
-// buffers, selectors, selector and segment histograms, the bucket-wide
-// mask, then the ring.
+// buffers, selectors, selector and segment histograms, then the ring.
 struct SmemLayout {
-  unsigned flags, sel, cnt, segc, bmask, ring, total;
+  unsigned flags, sel, cnt, segc, ring, total;
 };
 
-__host__ __device__ inline SmemLayout smem_layout(int t, int s, int c, int cap,
-                                                  bool bmask, int stages,
+__host__ __device__ inline SmemLayout smem_layout(int t, int c, int cap, int stages,
                                                   unsigned stage_bytes) {
   SmemLayout m;
   m.flags = kBarBytes;
   m.sel = m.flags + 8u * t;
   m.cnt = m.sel + 4u * c;
   m.segc = m.cnt + 4u * c;
-  m.bmask = m.segc + 4u * cap;
-  m.ring = (m.bmask + (bmask ? (unsigned)s : 0) + 127) / 128 * 128;
+  m.ring = (m.segc + 4u * cap + 127) / 128 * 128;
   m.total = m.ring + (unsigned)stages * stage_bytes;
   return m;
 }
@@ -252,8 +290,8 @@ __device__ __forceinline__ void scan_plain(const Tile& v, int n_slots, int s,
 // After the scan: decision, upsync and the segment count per row (one
 // thread per row), then the selector hits over the tile's (row, selector)
 // pairs. Resets the row flags it read.
-__device__ __forceinline__ void finish_rows(const Params& p, const Tile& v,
-                                            int n, long long r0,
+__device__ __forceinline__ void finish_rows(const Params& p, const Shard& sh,
+                                            const Tile& v, int n, long long r0,
                                             int32_t* flags,
                                             const int32_t* s_sel,
                                             int32_t* s_cnt, int32_t* s_seg,
@@ -271,8 +309,8 @@ __device__ __forceinline__ void finish_rows(const Params& p, const Tile& v,
       if (ue && !de) code = 1;
       else if (!ue && de) code = 3;
       else if (ue && de && (f & 1)) code = 2;
-      p.decision[r0 + r] = code;
-      p.upsync[r0 + r] = (ue && de && (f & 2)) ? 1 : 0;
+      sh.decision[r0 + r] = code;
+      sh.upsync[r0 + r] = (ue && de && (f & 2)) ? 1 : 0;
       if (v.seg != nullptr && ue) {
         int g = v.seg[r];
         if (g < 0) g += p.cap;
@@ -299,22 +337,20 @@ __device__ __forceinline__ void finish_rows(const Params& p, const Tile& v,
 }
 
 __global__ void __launch_bounds__(kThreads)
-decide_match_kernel(const Params p) {
+decide_match_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   const bool per_row = p.mask_stride != 0;
-  const bool fleet = p.seg != nullptr;
+  const bool fleet = p.seg_counts != nullptr;
   const bool bulk = p.bulk_tiles > 0;
   const int T = p.tile;
   const StageLayout lo = stage_layout(T, p.s, p.l, per_row, fleet);
-  const SmemLayout sm = smem_layout(T, p.s, p.c, p.cap, bulk && !per_row,
-                                    bulk ? p.stages : 0, lo.bytes);
+  const SmemLayout sm = smem_layout(T, p.c, p.cap, bulk ? p.stages : 0, lo.bytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   int32_t* s_flags = reinterpret_cast<int32_t*>(smem + sm.flags);
   int32_t* s_sel = reinterpret_cast<int32_t*>(smem + sm.sel);
   int32_t* s_cnt = reinterpret_cast<int32_t*>(smem + sm.cnt);
   int32_t* s_seg = reinterpret_cast<int32_t*>(smem + sm.segc);
-  uint8_t* s_bmask = smem + sm.bmask;
   uint8_t* ring = smem + sm.ring;
 
   const int tid = threadIdx.x;
@@ -324,8 +360,6 @@ decide_match_kernel(const Params p) {
     s_cnt[i] = 0;
   }
   for (int i = tid; i < p.cap; i += kThreads) s_seg[i] = 0;
-  if (bulk && !per_row)
-    for (int j = tid; j < p.s; j += kThreads) s_bmask[j] = p.mask[j];
   if (tid == 0 && bulk) {
     for (int k = 0; k < p.stages; ++k) {
       mbar_init(&full[k], 1);
@@ -343,20 +377,22 @@ decide_match_kernel(const Params p) {
     int stage = 0;
     uint32_t phase = 0;
     for (long long t = blockIdx.x; t < p.bulk_tiles; t += gridDim.x) {
+      const Loc at = locate(p, t);
+      const Shard& sh = p.shard[at.k];
       mbar_wait(&empty[stage], phase ^ 1);  // passes at once in round 0
       uint8_t* st = ring + (size_t)stage * lo.bytes;
       uint64_t* bar = &full[stage];
       mbar_arrive_expect_tx(bar, lo.bytes);
-      const long long r0 = t * T;
+      const long long r0 = at.tile * T;
       const long long e0 = r0 * p.s;
       const unsigned ts = (unsigned)T * (unsigned)p.s;
-      bulk_load(st + lo.up, p.up + e0, 4 * ts, bar);
-      bulk_load(st + lo.down, p.down + e0, 4 * ts, bar);
-      if (per_row) bulk_load(st + lo.mask, p.mask + e0, ts, bar);
-      bulk_load(st + lo.ue, p.up_exists + r0, T, bar);
-      bulk_load(st + lo.de, p.down_exists + r0, T, bar);
-      bulk_load(st + lo.pair, p.pair + r0 * p.l, 4u * T * p.l, bar);
-      if (fleet) bulk_load(st + lo.seg, p.seg + r0, 4u * T, bar);
+      bulk_load(st + lo.up, sh.up + e0, 4 * ts, bar);
+      bulk_load(st + lo.down, sh.down + e0, 4 * ts, bar);
+      if (per_row) bulk_load(st + lo.mask, sh.mask + e0, ts, bar);
+      bulk_load(st + lo.ue, sh.up_exists + r0, T, bar);
+      bulk_load(st + lo.de, sh.down_exists + r0, T, bar);
+      bulk_load(st + lo.pair, sh.pair + r0 * p.l, 4u * T * p.l, bar);
+      if (fleet) bulk_load(st + lo.seg, sh.seg + r0, 4u * T, bar);
       if (++stage == p.stages) {
         stage = 0;
         phase ^= 1;
@@ -371,14 +407,16 @@ decide_match_kernel(const Params p) {
   int it = 0;
   for (long long t = blockIdx.x; t < p.tiles; t += gridDim.x, ++it) {
     int32_t* flags = s_flags + (it & 1) * T;
-    const long long r0 = t * T;
+    const Loc at = locate(p, t);
+    const Shard& sh = p.shard[at.k];
+    const long long r0 = at.tile * T;
     if (t < p.bulk_tiles) {
       mbar_wait(&full[stage], phase);
       const uint8_t* st = ring + (size_t)stage * lo.bytes;
       Tile v;
       v.up = reinterpret_cast<const int32_t*>(st + lo.up);
       v.down = reinterpret_cast<const int32_t*>(st + lo.down);
-      v.mask = per_row ? st + lo.mask : s_bmask;
+      v.mask = per_row ? st + lo.mask : sh.mask;
       v.mstride = per_row ? p.s : 0;
       v.ue = st + lo.ue;
       v.de = st + lo.de;
@@ -386,7 +424,7 @@ decide_match_kernel(const Params p) {
       v.seg = fleet ? reinterpret_cast<const int32_t*>(st + lo.seg) : nullptr;
       scan_vec(v, T * p.s, p.s, flags, tid);
       consumer_sync();
-      finish_rows(p, v, T, r0, flags, s_sel, s_cnt, s_seg, tid);
+      finish_rows(p, sh, v, T, r0, flags, s_sel, s_cnt, s_seg, tid);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[stage]);
       if (++stage == p.stages) {
@@ -394,19 +432,19 @@ decide_match_kernel(const Params p) {
         phase ^= 1;
       }
     } else {
-      const int n = (int)(p.rows - r0 < T ? p.rows - r0 : T);
+      const int n = (int)(sh.rows - r0 < T ? sh.rows - r0 : T);
       Tile v;
-      v.up = p.up + r0 * p.s;
-      v.down = p.down + r0 * p.s;
-      v.mask = p.mask + r0 * p.mask_stride;
+      v.up = sh.up + r0 * p.s;
+      v.down = sh.down + r0 * p.s;
+      v.mask = sh.mask + r0 * p.mask_stride;
       v.mstride = p.mask_stride;
-      v.ue = p.up_exists + r0;
-      v.de = p.down_exists + r0;
-      v.pair = p.pair + r0 * p.l;
-      v.seg = fleet ? p.seg + r0 : nullptr;
+      v.ue = sh.up_exists + r0;
+      v.de = sh.down_exists + r0;
+      v.pair = sh.pair + r0 * p.l;
+      v.seg = fleet ? sh.seg + r0 : nullptr;
       scan_plain(v, n * p.s, p.s, flags, tid);
       consumer_sync();
-      finish_rows(p, v, n, r0, flags, s_sel, s_cnt, s_seg, tid);
+      finish_rows(p, sh, v, n, r0, flags, s_sel, s_cnt, s_seg, tid);
     }
   }
   consumer_sync();
@@ -427,14 +465,28 @@ bool aligned16(const void* ptr) {
 // A block's shared-memory bytes under a plan (mirrored on the host by
 // cuda_kernels._smem_bytes).
 long long plan_smem(int s, int l, int c, int cap, bool per_row, bool fleet,
-                    int tile, int stages, long long bulk_tiles) {
+                    int tile, int stages, bool bulk) {
   const StageLayout lo = stage_layout(tile, s, l, per_row, fleet);
-  const bool bulk = bulk_tiles > 0;
-  return smem_layout(tile, s, c, cap, bulk && !per_row, bulk ? stages : 0,
-                     lo.bytes).total;
+  return smem_layout(tile, c, cap, bulk ? stages : 0, lo.bytes).total;
 }
 
 }  // namespace
+
+// One shard as the host describes it: eleven 8-byte words in this order
+// (cuda_kernels._descriptors).
+struct KcpShardDesc {
+  const void* up;
+  const void* down;
+  const void* up_exists;
+  const void* down_exists;
+  const void* mask;
+  const void* pair;
+  const void* seg;
+  void* decision;
+  void* upsync;
+  long long rows;
+  long long bulk_tiles;
+};
 
 // The number of SMs of the current device.
 extern "C" int kcp_sm_count(int* out) {
@@ -444,39 +496,61 @@ extern "C" int kcp_sm_count(int* out) {
   return (int)cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
 }
 
-// seg == nullptr: the 3-output form. Otherwise seg_counts gets the fleet
-// form's per-segment counts. The plan (tile, stages, bulk_tiles, grid)
-// comes from the host; a plan the kernel cannot run is refused with
-// cudaErrorInvalidValue before any launch.
-extern "C" int kcp_decide_match(const void* up, const void* down,
-                                const void* up_exists, const void* down_exists,
-                                const void* mask, long long mask_stride,
-                                const void* pair, const void* sel,
-                                const void* seg, void* decision, void* upsync,
-                                void* counts, void* seg_counts, long long rows,
-                                int s, int l, int c, int cap, int tile,
-                                int stages, long long bulk_tiles, int grid,
+// One launch over `n` row shards on the current card (a single call is a
+// group of one). seg_counts == nullptr: the 3-output form; otherwise every
+// shard's seg ids count into seg_counts. Every shard adds into the one
+// counts (and seg_counts) buffer; sel is the group's. The plan (tile,
+// stages, grid, each shard's bulk_tiles) comes from the host; a plan the
+// kernel cannot run is refused with cudaErrorInvalidValue before any
+// launch. No rows: nothing is launched.
+extern "C" int kcp_decide_match(const KcpShardDesc* shards, int n,
+                                long long mask_stride, const void* sel,
+                                void* counts, void* seg_counts, int s, int l,
+                                int c, int cap, int tile, int stages, int grid,
                                 void* stream) {
-  if (rows <= 0) return 0;
   const bool per_row = mask_stride != 0;
-  const bool fleet = seg != nullptr;
-  if (tile <= 0 || tile % 16 != 0 || grid <= 0 || bulk_tiles < 0 ||
-      bulk_tiles * tile > rows || stages < 0 || stages > kMaxStages ||
-      (bulk_tiles > 0 && stages < 2) || (fleet && seg_counts == nullptr))
+  const bool fleet = seg_counts != nullptr;
+  if (n <= 0 || n > kMaxShards || tile <= 0 || tile % 16 != 0 || grid <= 0 ||
+      stages < 0 || stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
-  if (bulk_tiles > 0 &&
-      !(aligned16(up) && aligned16(down) && (!per_row || aligned16(mask)) &&
-        aligned16(up_exists) && aligned16(down_exists) &&
-        (l == 0 || aligned16(pair)) && (!fleet || aligned16(seg))))
-    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  long long bulk = 0, plain = 0;
+  for (int k = 0; k < n; ++k) {
+    const KcpShardDesc& d = shards[k];
+    if (d.rows < 0 || d.bulk_tiles < 0 || d.bulk_tiles * tile > d.rows ||
+        (fleet && d.rows > 0 && d.seg == nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (d.bulk_tiles > 0 &&
+        (stages < 2 ||
+         !(aligned16(d.up) && aligned16(d.down) && (!per_row || aligned16(d.mask)) &&
+           aligned16(d.up_exists) && aligned16(d.down_exists) &&
+           (l == 0 || aligned16(d.pair)) && (!fleet || aligned16(d.seg)))))
+      return (int)cudaErrorInvalidValue;
+    Shard& sh = p.shard[k];
+    sh.up = (const int32_t*)d.up;
+    sh.down = (const int32_t*)d.down;
+    sh.up_exists = (const uint8_t*)d.up_exists;
+    sh.down_exists = (const uint8_t*)d.down_exists;
+    sh.mask = (const uint8_t*)d.mask;
+    sh.pair = (const int32_t*)d.pair;
+    sh.seg = fleet ? (const int32_t*)d.seg : nullptr;
+    sh.decision = (uint8_t*)d.decision;
+    sh.upsync = (uint8_t*)d.upsync;
+    sh.rows = d.rows;
+    sh.bulk_tiles = d.bulk_tiles;
+    sh.bulk_first = bulk;
+    sh.plain_first = plain;
+    bulk += d.bulk_tiles;
+    plain += (d.rows + tile - 1) / tile - d.bulk_tiles;
+  }
+  if (bulk + plain == 0) return 0;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   if (!fleet) cap = 0;
-  const long long smem = plan_smem(s, l, c, cap, per_row, fleet, tile, stages,
-                                   bulk_tiles);
+  const long long smem = plan_smem(s, l, c, cap, per_row, fleet, tile, stages, bulk > 0);
   if (smem > optin) return (int)cudaErrorInvalidValue;
   static bool raised[64];
   if (smem > 48 * 1024 && (dev >= 64 || !raised[dev])) {
@@ -485,29 +559,19 @@ extern "C" int kcp_decide_match(const void* up, const void* down,
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) raised[dev] = true;
   }
-  Params p;
-  p.up = (const int32_t*)up;
-  p.down = (const int32_t*)down;
-  p.up_exists = (const uint8_t*)up_exists;
-  p.down_exists = (const uint8_t*)down_exists;
-  p.mask = (const uint8_t*)mask;
-  p.mask_stride = mask_stride;
-  p.pair = (const int32_t*)pair;
+  p.n = n;
   p.sel = (const int32_t*)sel;
-  p.seg = (const int32_t*)seg;
-  p.decision = (uint8_t*)decision;
-  p.upsync = (uint8_t*)upsync;
   p.counts = (int32_t*)counts;
   p.seg_counts = (int32_t*)seg_counts;
-  p.rows = rows;
+  p.mask_stride = mask_stride;
   p.s = s;
   p.l = l;
   p.c = c;
   p.cap = cap;
   p.tile = tile;
   p.stages = stages;
-  p.bulk_tiles = bulk_tiles;
-  p.tiles = (rows + tile - 1) / tile;
+  p.bulk_tiles = bulk;
+  p.tiles = bulk + plain;
   decide_match_kernel<<<(unsigned)grid, kThreads, (size_t)smem,
                         (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();

@@ -18,9 +18,11 @@ Dispatch is by the device of the tensors:
   composition, which is also what the kernel is checked against.
 
 The kernel runs a persistent grid over row tiles fed by bulk copies into
-a ring in shared memory; :func:`_tile_plan` makes the plan (tile rows,
-ring depth, grid, bulk or plain-load path) on the host and the kernel
-takes it as arguments. ``last_plan`` holds the plan of the latest launch.
+a ring in shared memory. One launch takes a group of up to
+:data:`MAX_SHARDS` row shards on one card (a single call is a group of
+one); :func:`_group_plan` makes the plan (tile rows, ring depth, grid,
+each shard's bulk and plain-load tiles) on the host and the kernel takes
+it as arguments. ``last_plan`` holds the plan of the latest launch.
 
 The kernel is compiled with ``nvcc`` at first use into
 ``build/kcp_tpu_torch/`` at the repo root (a plain C entry point, loaded
@@ -34,16 +36,17 @@ process reads its launches per server); nothing else touches either.
 ``decide_and_match_sharded`` is the mesh form (it replaces
 ``kcp_tpu/ops/pallas_kernels.py:decide_and_match_sharded``, a
 ``shard_map`` of the Pallas kernel plus a ``psum`` of the counts): one
-launch of the same kernel per row shard, on that shard's device, over the
-shard's rows with its slot columns gathered to full S; the [C] (and
-[seg_capacity]) counts of shards that share a device accumulate into one
-zeroed buffer (the kernel adds into the counts it is given), and the
-per-device sums are added on the mesh's lead device. On a mesh whose row
-shards span the processes of a ``torch.distributed`` group, a process
-launches only over its own row shards and one ``all_reduce`` on the group
-adds the other processes' counts.
-``decide_and_match_sharded.launches`` (and ``.by_thread``) counts those
-per-shard launches.
+grouped launch of the same kernel per device, over every row shard this
+process holds there, each with its slot columns gathered to full S (a
+device holding more than :data:`MAX_SHARDS` shards takes one launch per
+:data:`MAX_SHARDS`). The kernel sums the [C] (and [seg_capacity]) counts
+of the group's shards in its histograms, which is the ``psum`` over
+co-resident shards; the per-device sums are added on the mesh's lead
+device. On a mesh whose row shards span the processes of a
+``torch.distributed`` group, a process launches only over its own row
+shards and one ``all_reduce`` on the group adds the other processes'
+counts. ``decide_and_match_sharded.launches`` (and ``.by_thread``)
+counts those grouped launches: one per device a call.
 """
 
 from __future__ import annotations
@@ -83,6 +86,7 @@ SMEM_RESERVED = 1024
 STAGE_TARGET = 24 * 1024  # bytes of one ring stage the tile size aims at
 MAX_STAGES = 2
 BLOCKS_PER_SM = 2
+MAX_SHARDS = 16  # row shards one launch takes (kMaxShards in the CUDA source)
 
 _build_lock = make_lock("cuda_kernels.build")
 _lib: ctypes.CDLL | None = None
@@ -146,9 +150,8 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.kcp_decide_match.argtypes = [vp, vp, vp, vp, vp, ll, vp, vp, vp,
-                                         vp, vp, vp, vp, ll, ci, ci, ci, ci,
-                                         ci, ci, ll, ci, vp]
+        lib.kcp_decide_match.argtypes = [vp, ci, ll, vp, vp, vp, ci, ci, ci, ci,
+                                         ci, ci, ci, vp]
         lib.kcp_decide_match.restype = ci
         lib.kcp_sm_count.argtypes = [ctypes.POINTER(ci)]
         lib.kcp_sm_count.restype = ci
@@ -182,44 +185,38 @@ RANGES = ("up_vals", "down_vals", "status_mask", "up_exists", "down_exists",
           "pair_hashes", "seg_ids")
 
 
+class ShardTiles(NamedTuple):
+    rows: int
+    bulk_tiles: int  # its full tiles through the ring (0: every tile plain)
+    tiles: int  # ceil(rows / T)
+    bulk_first: int  # global index of its first bulk tile
+    plain_first: int  # its first plain-path tile among the group's
+
+
 class TilePlan(NamedTuple):
     tile: int  # T rows per tile, a multiple of 16
     stages: int  # ring depth in shared memory (0 on the plain-load path)
     grid: int  # persistent blocks
-    bulk: bool  # full tiles come through bulk copies
-    bulk_tiles: int  # tiles [0, bulk_tiles) are bulk-copied
-    tiles: int  # ceil(B / T); the rest go through the plain-load path
+    bulk: bool  # some full tiles come through bulk copies
+    bulk_tiles: int  # global tiles [0, bulk_tiles) are bulk-copied
+    tiles: int  # every shard's ceil(rows / T); the rest go through plain loads
     tail_rows: int  # rows the plain-load path reads
     ranges: tuple  # bytes of each input per tile, in RANGES order (0: not loaded)
     smem: int  # shared-memory bytes per block
+    shards: tuple  # a ShardTiles per shard, in launch order
 
 
-def _smem_bytes(t: int, s: int, c: int, cap: int, bmask: bool, stages: int,
-                stage_bytes: int) -> int:
+def _smem_bytes(t: int, c: int, cap: int, stages: int, stage_bytes: int) -> int:
     """A block's shared memory (``smem_layout`` in the CUDA source):
     mbarriers, two [T] row-flag buffers, selectors and the [C] and [cap]
-    histograms, the bucket-wide mask, then the ring."""
-    head = 128 + 8 * t + 8 * c + 4 * cap + (s if bmask else 0)
+    histograms, then the ring."""
+    head = 128 + 8 * t + 8 * c + 4 * cap
     return -(-head // 128) * 128 + stages * stage_bytes
 
 
-def _tile_plan(b: int, s: int, l: int, c: int, mask_per_row: bool,
-               ptrs: tuple, fleet: bool, seg_capacity: int = 0,
-               sms: int = 132) -> TilePlan:
-    """The launch plan for B rows of S slots, L pair hashes, C selectors.
-
-    ``ptrs`` are the inputs' device addresses in :data:`RANGES` order. A
-    stage holds T rows of every input, T the largest multiple of 16 whose
-    stage stays within ``STAGE_TARGET`` bytes; the ring holds up to
-    ``MAX_STAGES`` of them within the block's share of shared memory
-    (``BLOCKS_PER_SM`` blocks share an SM). Full tiles take the bulk path
-    when every loaded input starts on a 16-byte boundary and two stages
-    fit; the last partial tile, and every tile otherwise, take the
-    plain-load path."""
-    row_bytes = _row_bytes(s, l, mask_per_row, fleet)
-    aligned = all(p % 16 == 0 for p, n in zip(ptrs, row_bytes) if n)
-    return _plan(b, s, l, c, bool(mask_per_row), aligned, bool(fleet),
-                 seg_capacity if fleet else 0, sms)
+def _aligned(ptrs: tuple, row_bytes: tuple) -> bool:
+    """Every input the ring loads starts on a 16-byte boundary."""
+    return all(p % 16 == 0 for p, n in zip(ptrs, row_bytes) if n)
 
 
 def _row_bytes(s: int, l: int, mask_per_row: bool, fleet: bool) -> tuple:
@@ -227,26 +224,46 @@ def _row_bytes(s: int, l: int, mask_per_row: bool, fleet: bool) -> tuple:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(b, s, l, c, per_row, aligned, fleet, cap, sms) -> TilePlan:
+def _group_plan(shards: tuple, s: int, l: int, c: int, per_row: bool, fleet: bool,
+                cap: int, sms: int) -> TilePlan:
+    """The launch plan for a group of row shards of S slots, L pair
+    hashes, C selectors: ``shards`` holds (rows, aligned) per shard in
+    launch order, ``aligned`` whether every input the ring loads starts
+    on a 16-byte boundary.
+
+    A stage holds T rows of every input, T the largest multiple of 16
+    whose stage stays within ``STAGE_TARGET`` bytes; the ring holds up to
+    ``MAX_STAGES`` of them within the block's share of shared memory
+    (``BLOCKS_PER_SM`` blocks share an SM). A shard's full tiles take the
+    bulk path when it is aligned and two stages fit; its last partial
+    tile, and every tile of a shard otherwise, take the plain-load path.
+    The global tile order is every bulk tile (shard by shard), then every
+    plain-path tile (shard by shard); the grid is min(SMs x
+    ``BLOCKS_PER_SM``, tiles)."""
     row_bytes = _row_bytes(s, l, per_row, fleet)
     per_tile_row = sum(row_bytes)
     budget = min(SMEM_BLOCK_MAX, SMEM_PER_SM // BLOCKS_PER_SM) - SMEM_RESERVED
-    if _smem_bytes(16, s, c, cap, False, 0, 0) > budget:
+    if _smem_bytes(16, c, cap, 0, 0) > budget:
         raise ValueError(f"decide_and_match: C={c} selectors and seg_capacity={cap} "
                          f"do not fit the kernel's shared memory")
     t = max(16, STAGE_TARGET // per_tile_row // 16 * 16)
-    free = budget - _smem_bytes(t, s, c, cap, not per_row, 0, 0)
-    stages = min(MAX_STAGES, max(0, free) // (t * per_tile_row))
-    bulk = aligned and stages >= 2 and b >= t
-    if not bulk:
-        stages = 0
-    tiles = -(-b // t)
-    bulk_tiles = b // t if bulk else 0
+    free = budget - _smem_bytes(t, c, cap, 0, 0)
+    depth = min(MAX_STAGES, max(0, free) // (t * per_tile_row))
+    tiles, bulk_tiles, plain_tiles = [], 0, 0
+    for rows, aligned in shards:
+        n = -(-rows // t)
+        bulk = rows // t if aligned and depth >= 2 else 0
+        tiles.append(ShardTiles(rows, bulk, n, bulk_tiles, plain_tiles))
+        bulk_tiles += bulk
+        plain_tiles += n - bulk
+    stages = depth if bulk_tiles else 0
+    total = bulk_tiles + plain_tiles
     return TilePlan(
-        tile=t, stages=stages, grid=max(1, min(sms * BLOCKS_PER_SM, tiles)), bulk=bulk,
-        bulk_tiles=bulk_tiles, tiles=tiles, tail_rows=b - bulk_tiles * t,
+        tile=t, stages=stages, grid=max(1, min(sms * BLOCKS_PER_SM, total)),
+        bulk=bulk_tiles > 0, bulk_tiles=bulk_tiles, tiles=total,
+        tail_rows=sum(rows for rows, _ in shards) - bulk_tiles * t,
         ranges=tuple(n * t for n in row_bytes),
-        smem=_smem_bytes(t, s, c, cap, bulk and not per_row, stages, t * per_tile_row))
+        smem=_smem_bytes(t, c, cap, stages, t * per_tile_row), shards=tuple(tiles))
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +296,21 @@ def decide_and_match_plain(up_vals, up_exists, down_vals, down_exists,
     if seg_ids is None:
         return out
     return (*out, segment_counts_plain(seg_ids, up_exists, seg_capacity))
+
+
+def decide_and_match_group_plain(shards, seg_capacity=None):
+    """The grouped launch's plain version: :func:`decide_and_match_plain`
+    per shard (each a tuple as :func:`decide_and_match_shards` takes it),
+    the counts summed over the group. Returns (per-shard decisions,
+    per-shard upsyncs, counts int32 [C], and the summed [seg_capacity]
+    counts with ``seg_capacity``, else None)."""
+    fleet = seg_capacity is not None
+    outs = [decide_and_match_plain(*args[:7], args[7] if fleet else None, seg_capacity)
+            for args in shards]
+    counts = torch.stack([o[2] for o in outs]).sum(dim=0, dtype=torch.int32)
+    seg_counts = (torch.stack([o[3] for o in outs]).sum(dim=0, dtype=torch.int32)
+                  if fleet else None)
+    return [o[0] for o in outs], [o[1] for o in outs], counts, seg_counts
 
 
 # ---------------------------------------------------------------------------
@@ -326,54 +358,88 @@ def _check(up_vals, up_exists, down_vals, down_exists, status_mask,
                          f"got {tuple(sel_hashes.shape)}")
 
 
-def _launch(up_vals, up_exists, down_vals, down_exists, status_mask,
-            pair_hashes, sel_hashes, counts, seg_ids=None, seg_counts=None):
-    """Launch the kernel on the tensors' card; it ADDS each selector's
-    hits into ``counts`` (int32 [C] on the same device) and, with
-    ``seg_ids``, each segment's resident up rows into ``seg_counts``
-    (int32 [seg_capacity]). Returns (decision, upsync, launched); B=0
-    launches nothing."""
+def _descriptors(ptrs, plan: TilePlan, decisions, upsyncs) -> list:
+    """The group's shard descriptors as the kernel reads them
+    (``KcpShardDesc``, eleven words a shard): its up, down,
+    up_exists, down_exists, mask, pair and seg (0 outside the fleet form)
+    addresses, its decision and upsync outputs, rows and bulk tiles.
+    ``ptrs`` holds each shard's input addresses in :data:`RANGES` order."""
+    words = []
+    for (up, down, mask, upe, dne, pair, seg), dec, ups, tiles in zip(
+            ptrs, decisions, upsyncs, plan.shards):
+        words += (up, down, upe, dne, mask, pair, seg, dec.data_ptr(), ups.data_ptr(),
+                  tiles.rows, tiles.bulk_tiles)
+    return words
+
+
+def _launch(group, counts, seg_counts=None):
+    """One launch of the kernel over ``group``: 1 to :data:`MAX_SHARDS`
+    row shards on one card, each a tuple (up_vals, up_exists, down_vals,
+    down_exists, status_mask, pair_hashes, sel_hashes), plus its seg_ids
+    in the fleet form (``seg_counts`` given). The shards share S, L, C and
+    the mask's form, and the selectors, which are the first shard's (a
+    replicated [C]). The kernel ADDS every shard's selector hits into
+    ``counts`` (int32 [C] on the same card) and, in the fleet form, every
+    shard's resident up rows per segment into ``seg_counts`` (int32
+    [seg_capacity]). Returns (decisions, upsyncs, launched): each shard's
+    lanes, views of one buffer over the group's rows; no rows launch
+    nothing."""
     global last_plan
-    _check(up_vals, up_exists, down_vals, down_exists, status_mask,
-           pair_hashes, sel_hashes, seg_ids)
-    dev = up_vals.device
-    b, s = up_vals.shape
-    l, c = pair_hashes.shape[1], sel_hashes.shape[0]
+    if not 1 <= len(group) <= MAX_SHARDS:
+        raise ValueError(f"decide_and_match: {len(group)} shards in one launch "
+                         f"(1 to {MAX_SHARDS})")
+    fleet = seg_counts is not None
+    first = group[0]
+    dev = first[0].device
+    s, l, c = first[0].shape[-1], first[5].shape[-1], first[6].shape[0]
+    per_row = first[4].ndim == 2
+    for args in group:
+        if len(args) != 7 + fleet:
+            raise ValueError(f"decide_and_match: a shard has {len(args)} inputs, "
+                             f"want {7 + fleet}")
+        _check(*args)
+        if (args[0].device != dev or args[0].shape[1] != s or args[5].shape[1] != l
+                or args[6].shape[0] != c or (args[4].ndim == 2) != per_row):
+            raise ValueError("decide_and_match: the shards of one launch differ in "
+                             "device, S, L, C or the mask's form")
     if counts.device != dev or counts.dtype != torch.int32 or counts.shape != (c,):
         raise ValueError(f"decide_and_match: counts must be int32 [{c}] on {dev}")
-    fleet = seg_ids is not None
-    if fleet and (seg_counts is None or seg_counts.device != dev
-                  or seg_counts.dtype != torch.int32 or seg_counts.ndim != 1):
+    if fleet and (seg_counts.device != dev or seg_counts.dtype != torch.int32
+                  or seg_counts.ndim != 1):
         raise ValueError(f"decide_and_match: seg_counts must be int32 [seg_capacity] on {dev}")
     cap = seg_counts.shape[0] if fleet else 0
-    decision = torch.empty(b, dtype=torch.uint8, device=dev)
-    upsync = torch.empty(b, dtype=torch.bool, device=dev)
-    if b == 0:
-        return decision, upsync, False
+    sizes = [args[0].shape[0] for args in group]
+    decision = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+    upsync = torch.empty(sum(sizes), dtype=torch.bool, device=dev)
+    if len(group) == 1:
+        decisions, upsyncs = [decision], [upsync]
+    else:
+        decisions, upsyncs = list(decision.split(sizes)), list(upsync.split(sizes))
+    if not sum(sizes):
+        return decisions, upsyncs, 0
     lib = _load()
-    seg_ptr = seg_ids.data_ptr() if fleet else None
-    ptrs = (up_vals.data_ptr(), down_vals.data_ptr(), status_mask.data_ptr(),
-            up_exists.data_ptr(), down_exists.data_ptr(), pair_hashes.data_ptr(),
-            seg_ptr or 0)
-    plan = last_plan = _tile_plan(b, s, l, c, status_mask.ndim == 2, ptrs, fleet, cap,
-                                  _sm_count(dev))
-    up_p, down_p, mask_p, upe_p, dne_p, pair_p, _ = ptrs
+    row_bytes = _row_bytes(s, l, per_row, fleet)
+    ptrs = [(a[0].data_ptr(), a[2].data_ptr(), a[4].data_ptr(), a[1].data_ptr(),
+             a[3].data_ptr(), a[5].data_ptr(), a[7].data_ptr() if fleet else 0)
+            for a in group]
+    plan = last_plan = _group_plan(
+        tuple((n, _aligned(p, row_bytes)) for n, p in zip(sizes, ptrs)),
+        s, l, c, per_row, fleet, cap, _sm_count(dev))
+    words = _descriptors(ptrs, plan, decisions, upsyncs)
     idx = _index(dev)
     # switching the current device costs more host time than the launch
     # itself, so only a launch on another card switches
     switch = idx != torch.cuda.current_device()
     with torch.cuda.device(idx) if switch else contextlib.nullcontext():
         rc = lib.kcp_decide_match(
-            up_p, down_p, upe_p, dne_p, mask_p, s if status_mask.ndim == 2 else 0,
-            pair_p, sel_hashes.data_ptr(), seg_ptr,
-            decision.data_ptr(), upsync.data_ptr(), counts.data_ptr(),
-            seg_counts.data_ptr() if fleet else None,
-            b, s, l, c, cap, plan.tile, plan.stages, plan.bulk_tiles, plan.grid,
-            torch.cuda.current_stream(idx).cuda_stream)
+            (ctypes.c_longlong * len(words))(*words), len(group), s if per_row else 0,
+            first[6].data_ptr(), counts.data_ptr(),
+            seg_counts.data_ptr() if fleet else None, s, l, c, cap, plan.tile,
+            plan.stages, plan.grid, torch.cuda.current_stream(idx).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decide_and_match: kernel launch failed with CUDA "
                            f"error {rc}")
-    return decision, upsync, True
+    return decisions, upsyncs, 1
 
 
 def _seg_capacity(seg_ids, seg_capacity) -> int | None:
@@ -405,9 +471,10 @@ def decide_and_match(up_vals, up_exists, down_vals, down_exists, status_mask,
         raise ValueError(f"decide_and_match: unsupported device {dev}")
     counts = torch.zeros(sel_hashes.shape[0], dtype=torch.int32, device=dev)
     seg_counts = None if cap is None else torch.zeros(cap, dtype=torch.int32, device=dev)
-    decision, upsync, launched = _launch(
-        up_vals, up_exists, down_vals, down_exists, status_mask,
-        pair_hashes, sel_hashes, counts, seg_ids, seg_counts)
+    args = (up_vals, up_exists, down_vals, down_exists, status_mask, pair_hashes,
+            sel_hashes)
+    (decision,), (upsync,), launched = _launch(
+        [args if cap is None else (*args, seg_ids)], counts, seg_counts)
     _count(decide_and_match, launched)
     if seg_counts is None:
         return decision, upsync, counts
@@ -439,35 +506,41 @@ def decide_and_match_shards(shards, lead: torch.device, seg_capacity=None, mesh=
     (``seg_capacity`` given) — each the shard's rows with full S, on the
     shard's device. Returns the per-shard decision and upsync lanes, the
     global [C] counts on ``lead`` and, in the fleet form, the global
-    [seg_capacity] counts on ``lead`` (else None). CPU shards take the
-    plain version; CUDA shards launch the kernel, accumulating into one
-    zeroed buffer per device. On a ``mesh`` whose row shards span
-    processes, the counts of the other processes' shards join through one
-    ``all_reduce`` on the group (the reference's ``psum``)."""
+    [seg_capacity] counts on ``lead`` (else None). The shards are grouped
+    by device: a CPU group takes :func:`decide_and_match_group_plain`; a
+    CUDA group is one launch of the kernel over all of its shards (one
+    per :data:`MAX_SHARDS` shards), each shard's lanes views of one
+    buffer, its counts summed in the kernel into one zeroed buffer per
+    device. On a ``mesh`` whose row shards span processes, the counts of
+    the other processes' shards join through one ``all_reduce`` on the
+    group (the reference's ``psum``)."""
     fleet = seg_capacity is not None
+    by_dev: dict[torch.device, list[int]] = {}
+    for i, args in enumerate(shards):
+        by_dev.setdefault(args[0].device, []).append(i)
     acc: dict[torch.device, torch.Tensor] = {}
     seg_acc: dict[torch.device, torch.Tensor] = {}
-    decisions, upsyncs = [], []
-    for args in shards:
-        dev = args[0].device
-        if dev not in acc:
-            acc[dev] = torch.zeros(args[6].shape[0], dtype=torch.int32, device=dev)
+    decisions, upsyncs = [None] * len(shards), [None] * len(shards)
+    for dev, where in by_dev.items():
+        group = [shards[i] for i in where]
+        if dev.type == "cpu":
+            decs, ups, acc[dev], seg = decide_and_match_group_plain(group, seg_capacity)
+            if fleet:
+                seg_acc[dev] = seg
+        elif dev.type == "cuda":
+            acc[dev] = torch.zeros(group[0][6].shape[0], dtype=torch.int32, device=dev)
             if fleet:
                 seg_acc[dev] = torch.zeros(seg_capacity, dtype=torch.int32, device=dev)
-        seg = args[7] if fleet else None
-        if dev.type == "cpu":
-            out = decide_and_match_plain(*args[:7], seg, seg_capacity)
-            d, u = out[0], out[1]
-            acc[dev] += out[2]
-            if fleet:
-                seg_acc[dev] += out[3]
-        elif dev.type == "cuda":
-            d, u, launched = _launch(*args[:7], acc[dev], seg, seg_acc.get(dev))
-            _count(decide_and_match_sharded, launched)
+            decs, ups = [], []
+            for k in range(0, len(group), MAX_SHARDS):
+                d, u, launched = _launch(group[k:k + MAX_SHARDS], acc[dev], seg_acc.get(dev))
+                _count(decide_and_match_sharded, launched)
+                decs += d
+                ups += u
         else:
             raise ValueError(f"decide_and_match_sharded: unsupported device {dev}")
-        decisions.append(d)
-        upsyncs.append(u)
+        for i, d, u in zip(where, decs, ups):
+            decisions[i], upsyncs[i] = d, u
     counts = _sum_on(acc, lead)
     seg_counts = _sum_on(seg_acc, lead) if fleet else None
     if mesh is not None and mesh.process is not None:
@@ -500,9 +573,10 @@ def decide_and_match_sharded(mesh, up_vals, up_exists, down_vals, down_exists,
 
     Arguments are ShardedTensors laid out as ``shard_state`` lays out a
     state (``seg_ids`` as the row flags), or whole tensors, which are
-    sharded here with that layout. Every row shard of this process runs
-    the kernel (or, on the CPU, the plain version) over its rows with its slot
-    columns gathered to full S. Any B works, including one that does not
+    sharded here with that layout. The row shards of this process that
+    share a card run in one launch of the kernel (on the CPU, the plain
+    version), each over its rows with its slot columns gathered to full
+    S. Any B works, including one that does not
     split evenly over the row shards: the split is uneven
     (``parallel.mesh.row_bounds``), never padded, so the reference's TPU
     gates (the XLA-lane fallback for a slots axis or for local rows off a

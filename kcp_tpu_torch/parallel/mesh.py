@@ -25,9 +25,15 @@ index is the rank: a process holds only its own hosts block of row shards
 (:attr:`Mesh.local_rows`), a remote row shard has no tensor and no device
 here, and what crosses row shards goes through :func:`all_sum` and
 :func:`gather_blocks` on the group. A mesh's device list may repeat a device: the
-tests build 8 x ``cpu`` meshes and the card smoke 4 x ``cuda:0``. Every
-shard is still a separate allocation, so the per-shard code is the code a
-host with several cards runs. Copies between devices go through
+tests build 8 x ``cpu`` meshes, the card smoke 4 x ``cuda:0``, and an entry
+point whose ``--device`` names one card (``kcp start --mesh 4 --device
+cuda:0``, :func:`mesh_on`) holds every row shard there. Every shard is
+still a separate allocation. The fused kernel takes the row shards of one
+card in one launch (``ops.cuda_kernels.decide_and_match_shards``): on a
+repeated device a launch covers several shards, on a host with a card per
+row shard each launch covers one shard, and the card smoke runs only the
+former (``tests/test_torch_cuda.py`` holds the latter on several cards).
+Copies between devices go through
 ``Tensor.to``, whose cross-device path orders the two devices' current
 streams with events; between shards of one device it is a no-op.
 """

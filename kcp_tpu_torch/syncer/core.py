@@ -51,7 +51,8 @@ to shard every bucket's state over the mesh, with the
 layout of ``parallel/mesh.py``: rows over ``(hosts, tenants)``, slot
 columns over ``slots``. Bucket rows pad to the row factor, the slot
 capacity must divide by the slots axis, and each tick's step runs the
-kernel once per row shard (``decide_and_match_sharded``). The wire comes
+kernel once per device, over every row shard this process holds there
+(``decide_and_match_sharded``: one grouped launch). The wire comes
 back to the mesh's lead device; its host fetch waits on an event per
 shard device.
 """

@@ -136,7 +136,7 @@ def test_serving_shape_runs_the_bulk_path(cuda_device):
 @pytest.mark.parametrize("spec,b", [("4", 131072), ("4", 1027), ("2x2", 8200)])
 def test_sharded_fleet_form_equals_plain_version(cuda_device, spec, b):
     from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded
-    from kcp_tpu_torch.parallel.mesh import mesh_from_spec, row_factor
+    from kcp_tpu_torch.parallel.mesh import mesh_from_spec
 
     mesh = mesh_from_spec(spec, devices=[cuda_device] * 4)
     rng = np.random.default_rng(b)
@@ -146,7 +146,7 @@ def test_sharded_fleet_form_equals_plain_version(cuda_device, spec, b):
     dec, ups, counts, seg_counts = decide_and_match_sharded(
         mesh, *case, seg_ids=seg, seg_capacity=8)
     torch.cuda.synchronize()
-    assert decide_and_match_sharded.launches == before + row_factor(mesh)
+    assert decide_and_match_sharded.launches == before + 1  # one per device
     _assert_equal((dec.full(), ups.full(), counts, seg_counts),
                   decide_and_match_plain(*case, seg_ids=seg, seg_capacity=8))
 
@@ -211,20 +211,82 @@ def test_fused_core_closed_loop_on_card(cuda_device):
 @pytest.mark.parametrize("spec,b,s", [("4", 131072, 64), ("2x2", 8200, 32),
                                       ("4", 1027, 16)])
 def test_sharded_kernel_equals_plain_version(cuda_device, spec, b, s):
-    """Per-shard launches on repeated cuda:0 shards, counts accumulated
-    per device: equal to the unsharded plain version."""
+    """One grouped launch over the repeated cuda:0 shards, counts summed
+    in the kernel: equal to the unsharded plain version."""
     from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded
-    from kcp_tpu_torch.parallel.mesh import mesh_from_spec, row_factor
+    from kcp_tpu_torch.parallel.mesh import mesh_from_spec
 
     mesh = mesh_from_spec(spec, devices=[cuda_device] * 4)
     case = _case(np.random.default_rng(b), b, s, 1, 8, True, cuda_device)
     before = decide_and_match_sharded.launches
     dec, ups, counts = decide_and_match_sharded(mesh, *case)
     torch.cuda.synchronize()
-    assert decide_and_match_sharded.launches == before + row_factor(mesh)
+    assert decide_and_match_sharded.launches == before + 1  # one per device
     want = decide_and_match_plain(*case)
     assert torch.equal(dec.full(), want[0]) and torch.equal(ups.full(), want[1])
     assert torch.equal(counts, want[2])
+
+
+@pytest.mark.parametrize("per_row", [True, False], ids=["row_mask", "bucket_mask"])
+@pytest.mark.parametrize("spec,b,off", [("8", 131071, None), ("4", 131072, 1),
+                                        ("4", 3, None), ("20", 20000, None)])
+def test_grouped_launch_equals_plain_version(cuda_device, spec, b, off, per_row):
+    """One launch per MAX_SHARDS shards of a card: 8 shards, a shard whose
+    inputs start 4 bytes off (it alone takes the plain-load path), fewer
+    rows than shards, and 20 shards (two launches); with the per-row mask
+    and with the bucket-wide [S] mask, which each shard's tiles read from
+    the shard's own copy."""
+    from kcp_tpu_torch.ops.cuda_kernels import MAX_SHARDS, decide_and_match_sharded
+    from kcp_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.mesh_from_spec(spec, devices=[cuda_device] * int(spec))
+    rng = np.random.default_rng(b)
+    case = (*_case(rng, b, 64, 1, 8, per_row, cuda_device),
+            _segments(rng, b, 8, cuda_device))
+    lays = [pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.ROWS if per_row else pm.SLOT_MASK,
+            pm.FLAGS, pm.REPLICATED, pm.FLAGS]
+    args = [pm.ShardedTensor.put(x, mesh, lay) for x, lay in zip(case, lays)]
+    if off is not None:
+        for a in args:
+            if a.layout.rows:
+                blk = a.blocks[off][0]
+                flat = torch.empty(blk.numel() * blk.element_size() + 4, dtype=torch.uint8,
+                                   device=cuda_device)
+                a.blocks[off] = [flat[4:].view(blk.dtype).view(blk.shape).copy_(blk)]
+    before = decide_and_match_sharded.launches
+    got = decide_and_match_sharded(mesh, *args, seg_capacity=8)
+    torch.cuda.synchronize()
+    assert decide_and_match_sharded.launches == before + -(-int(spec) // MAX_SHARDS)
+    if off is not None:
+        bulk = [t.bulk_tiles > 0 for t in cuda_kernels.last_plan.shards]
+        assert bulk == [i != off for i in range(int(spec))]
+    _assert_equal((got[0].full(), got[1].full(), *got[2:]),
+                  decide_and_match_plain(*case[:7], seg_ids=case[7], seg_capacity=8))
+
+
+@pytest.mark.parametrize("per_row", [True, False], ids=["row_mask", "bucket_mask"])
+def test_sharded_kernel_across_cards_equals_plain_version(cuda_device, per_row):
+    """A mesh over the visible cards, one row shard a card: each card's
+    group is one shard, one launch a card, its counts summed on the lead."""
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded
+    from kcp_tpu_torch.parallel import mesh as pm
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards or more: one row shard a card")
+    mesh = pm.mesh_from_spec(str(n))
+    b = 131071
+    rng = np.random.default_rng(n)
+    case = (*_case(rng, b, 64, 1, 8, per_row, mesh.lead),
+            _segments(rng, b, 8, mesh.lead))
+    before = decide_and_match_sharded.launches
+    got = decide_and_match_sharded(mesh, *case[:7], seg_ids=case[7], seg_capacity=8)
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    assert decide_and_match_sharded.launches == before + n  # one per card
+    assert {blk[0].device for blk in got[0].blocks} == set(mesh.local_devices)
+    _assert_equal((got[0].full(), got[1].full(), *got[2:]),
+                  decide_and_match_plain(*case[:7], seg_ids=case[7], seg_capacity=8))
 
 
 def test_sharded_fleet_step_on_card_equals_unsharded(cuda_device):

@@ -22,6 +22,14 @@ _JAX_FLEET = jax.jit(jm.reconcile_step_fleet,
 ALIGNED = (1 << 20,) * 7  # every input on a 16-byte boundary
 
 
+def _tile_plan(b, s, l, c, per_row, ptrs, fleet, cap=0, sms=132) -> ck.TilePlan:
+    """The plan of one call over B rows (a group of one shard): ``ptrs``
+    are the inputs' device addresses in ``ck.RANGES`` order."""
+    aligned = ck._aligned(ptrs, ck._row_bytes(s, l, per_row, fleet))
+    return ck._group_plan(((b, aligned),), s, l, c, per_row, fleet,
+                          cap if fleet else 0, sms)
+
+
 def _walk(plan: ck.TilePlan, b: int):
     """The kernel's walk: block k takes tiles k, k + grid, ...; tiles
     below ``bulk_tiles`` come through the ring, the rest through plain
@@ -37,7 +45,7 @@ def _walk(plan: ck.TilePlan, b: int):
 @pytest.mark.parametrize("s", [1, 5, 33, 64])
 @pytest.mark.parametrize("b", [1, 15, 16, 17, 131071, 131072])
 def test_plan_tiles_cover_every_row_once(b, s, per_row, fleet):
-    plan = ck._tile_plan(b, s, 1, 8, per_row, ALIGNED, fleet, 8)
+    plan = _tile_plan(b, s, 1, 8, per_row, ALIGNED, fleet, 8)
     assert plan.tile % 16 == 0 and plan.tile >= 16
     assert all(n % 16 == 0 for n in plan.ranges)
     assert plan.ranges[2] == (plan.tile * s if per_row else 0)
@@ -59,7 +67,7 @@ def test_plan_tiles_cover_every_row_once(b, s, per_row, fleet):
 
 
 def test_serving_shape_takes_the_bulk_path():
-    plan = ck._tile_plan(131072, 64, 1, 8, True, ALIGNED, True, 8, sms=132)
+    plan = _tile_plan(131072, 64, 1, 8, True, ALIGNED, True, 8, sms=132)
     assert plan.bulk and plan.tail_rows == 0
     assert plan.tile == 32 and plan.stages == 2 and plan.grid == 2 * 132
     # one stage: up, down, mask, two exists flags, pair, seg ids
@@ -71,7 +79,7 @@ def test_serving_shape_takes_the_bulk_path():
 def test_misaligned_input_takes_the_plain_path(which):
     ptrs = list(ALIGNED)
     ptrs[which] += 1 if which in (2, 3, 4) else 4  # a row-offset view
-    plan = ck._tile_plan(131072, 64, 1, 8, True, tuple(ptrs), True, 8)
+    plan = _tile_plan(131072, 64, 1, 8, True, tuple(ptrs), True, 8)
     assert not plan.bulk and plan.tail_rows == 131072 and plan.stages == 0
 
 
@@ -80,14 +88,14 @@ def test_unloaded_inputs_do_not_decide_alignment():
     ptrs[2] += 1  # a bucket-wide mask is not bulk-copied
     ptrs[5] += 3  # L = 0: no pair hashes to copy
     ptrs[6] = 0  # no seg ids outside the fleet form
-    plan = ck._tile_plan(4096, 64, 0, 8, False, tuple(ptrs), False)
+    plan = _tile_plan(4096, 64, 0, 8, False, tuple(ptrs), False)
     assert plan.bulk
 
 
 def test_partial_tile_and_large_s_take_the_plain_path():
-    ragged = ck._tile_plan(131071, 64, 1, 8, True, ALIGNED, True, 8)
+    ragged = _tile_plan(131071, 64, 1, 8, True, ALIGNED, True, 8)
     assert ragged.bulk and ragged.tail_rows == 131071 % ragged.tile
-    huge = ck._tile_plan(1024, 8192, 1, 8, True, ALIGNED, True, 8)
+    huge = _tile_plan(1024, 8192, 1, 8, True, ALIGNED, True, 8)
     assert not huge.bulk and huge.tile == 16 and huge.tail_rows == 1024
 
 
@@ -95,16 +103,16 @@ def test_two_blocks_per_sm_halve_the_budget(monkeypatch):
     plans = {}
     for bps in (1, 2):
         monkeypatch.setattr(ck, "BLOCKS_PER_SM", bps)
-        ck._plan.cache_clear()
-        plans[bps] = ck._tile_plan(131072, 64, 1, 8, True, ALIGNED, True, 8)
-    ck._plan.cache_clear()
+        ck._group_plan.cache_clear()
+        plans[bps] = _tile_plan(131072, 64, 1, 8, True, ALIGNED, True, 8)
+    ck._group_plan.cache_clear()
     assert plans[2].grid == 2 * plans[1].grid
     assert 2 * (plans[2].smem + ck.SMEM_RESERVED) <= ck.SMEM_PER_SM
 
 
 def test_plan_refuses_histograms_that_do_not_fit():
     with pytest.raises(ValueError, match="selectors"):
-        ck._tile_plan(1024, 64, 1, 40000, True, ALIGNED, False)
+        _tile_plan(1024, 64, 1, 40000, True, ALIGNED, False)
 
 
 # ------------------------------------------------------- the fleet form
