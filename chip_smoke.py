@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``kcp_tpu_torch``) on one NVIDIA card.
+"""Smoke run of the PyTorch/CUDA port (``kcp_tpu_torch``) on one NVIDIA card,
+and on every visible card where there are several (phases 19-20).
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 Phases, each fatal on failure:
@@ -32,7 +33,8 @@ Phases, each fatal on failure:
    must be byte-equal, and the card step may call no ``index_add_`` (the
    kernel's fleet form counts the segments);
 4b. sharded step vs unsharded card step — the same two ticks through a
-   4-shard state on the card: byte-equal wires, no ``index_add_``;
+   4-shard state on the card: byte-equal wires, one sharded kernel launch
+   a tick, no ``index_add_``;
 5. main path — a closed churn loop through the port's ``FusedCore``
    (fleet batch on, pipeline "double") at 131,072 rows x 64 slots:
    every churned row must converge, the kernel's launch count must cover
@@ -43,7 +45,7 @@ Phases, each fatal on failure:
    quarantined;
 5c. after the main path, what needs the profiler (a profiler session
    can leave later launches slower on the host, so none runs before the
-   host-clock readings of phases 5 and 5b): the device time of every phase-3, 3b and 14 case,
+   host-clock readings of phases 5 and 5b): the device time of every phase-3, 3b, 14 and 19 case,
    back to back and with the L2 flushed before every call by writing and
    by reading 256 MiB, each profiled call holding its expected device
    events (a short profile is taken again, three in all), and the colder
@@ -199,12 +201,27 @@ Phases, each fatal on failure:
    reduction) and the evict drill; a child that must load no torch, then
    a ``--watchers-serve`` child that must load none either;
 18. A7, the serving mesh across processes: two rank processes of one
-   ``torch.distributed`` group (gloo: one card holds no two NCCL ranks),
-   each holding its hosts block of a ``2x2x1`` mesh on the card, run three
-   seeded fleet ticks at 131,072 x 64 (an overflowing one among them),
-   their row shards launching ``decide_and_match``: both ranks' wires must
-   equal the one-process ``2x2x1`` run's byte for byte; each rank's
-   backend, step ms and launches.
+   ``torch.distributed`` group, both serving on ``cuda:0`` (so gloo on any
+   host: one card holds no two NCCL ranks), each holding its hosts block
+   of a ``2x2x1`` mesh on the card, run three seeded fleet ticks at
+   131,072 x 64 (an overflowing one among them), their row shards
+   launching ``decide_and_match``: both ranks' wires must equal the
+   one-process ``2x2x1`` run's byte for byte; each rank's backend, step
+   ms and launches;
+19. the fused loop over a card per row shard, only where two cards or
+   more are visible (else one line, ``not run: needs ≥ 2 cards, 1
+   visible``): 4b's ticks through ``mesh_from_spec(str(n))`` over the n
+   cards, byte-equal to the unsharded step with one launch per card a
+   tick; 5's closed loop through ``FusedCore`` on that mesh (one launch
+   per card a tick) beside 5b's ms/tick and convergence; the sharded
+   kernel over the n cards against its plain version, and after 5c its
+   counted, cold device time with each card's share;
+20. A7 over NCCL, only where two cards or more are visible (else one
+   ``not run`` line): two rank processes that serve on cards of their own
+   (``2x2x1``, two cards a rank, on four cards or more; ``2x1x1`` on two
+   or three), each reporting ``nccl``, launching once a step on each of
+   its cards, its wires byte-equal to the one-process run over the same
+   spec (and to 18's); each rank's step ms beside 18's gloo ranks.
 
 Before each lane of phases 15-17, the script's own load is read, and a line
 per lane prints it: the CPU count and this process's affinity,
@@ -216,7 +233,7 @@ Every full (generation-2) garbage collection is timed, and phases 7-10,
 11, each mode of 12, 13 and 15 print theirs. Phase 11 runs with the heap
 the earlier phases left collected once and frozen (its time and size
 printed), so that full collections during it scan only what it
-allocates; the heap is unfrozen after it. Phases 7 to 18 run right
+allocates; the heap is unfrozen after it. Phases 7 to 20 run right
 after 5b, before the profiler of 5c, so that their host-clock
 readings, like those of 5 and 5b, follow no profiler session (phase
 8's own ``/debug/trace`` calls come after its readings;
@@ -379,16 +396,24 @@ def bound(case, outs, launches: int = 1) -> tuple[float, str, int]:
             nbytes)
 
 
+def sync_cards(torch) -> None:
+    """Wait for every visible card (``torch.cuda.synchronize()`` waits for
+    the current one only, and a call over a card per row shard runs on
+    them all)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def time_ms(fn, torch, iters: int) -> float:
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
+    sync_cards(torch)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
-    torch.cuda.synchronize()
+    sync_cards(torch)
     return start.elapsed_time(end) / iters
 
 
@@ -477,14 +502,15 @@ PROFILE_WARMUP_S = (0.05, 0.25, 1.0)
 
 
 def call_events(fn, torch, calls: int, kernel: str | None, flush=None,
-                warmup_s: float = PROFILE_WARMUP_S[0]) -> tuple:
+                warmup_s: float = PROFILE_WARMUP_S[0], by_card: dict | None = None) -> tuple:
     """``fn()`` ``calls`` times under torch.profiler, each call in a
     ``CALL_RANGE`` range, after ``warmup_s`` of unmeasured calls in the
     same window; with ``flush``, ``flush()`` runs
     before every call, outside the range. Returns, per measured call, the
     device us of each device event it launched whose name holds ``kernel``
     (every one with ``kernel=None``), the unmeasured calls' count, and the
-    count of such events anywhere in the profile. A device event belongs
+    count of such events anywhere in the profile; with ``by_card``, it also
+    sums the measured calls' device us there by card index. A device event belongs
     to a call when the CUDA API call that launched it (``cudaLaunchKernel``,
     ``cuLaunchKernel``, ``cudaMemsetAsync``, ...: the one with its
     correlation id) ran inside the call's range; a launch through ctypes
@@ -492,7 +518,7 @@ def call_events(fn, torch, calls: int, kernel: str | None, flush=None,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
+    sync_cards(torch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         warm, t0 = 0, time.perf_counter()
         while not warm or time.perf_counter() - t0 < warmup_s:
@@ -500,13 +526,13 @@ def call_events(fn, torch, calls: int, kernel: str | None, flush=None,
                 flush()
             fn()
             warm += 1
-        torch.cuda.synchronize()
+        sync_cards(torch)
         for _ in range(calls):
             if flush is not None:
                 flush()
             with record_function(CALL_RANGE):
                 fn()
-        torch.cuda.synchronize()
+        sync_cards(torch)
     events = prof.events()
     device: dict = {}
     for e in events:
@@ -522,26 +548,35 @@ def call_events(fn, torch, calls: int, kernel: str | None, flush=None,
             out += launched(child)
         return out
 
-    per_call = [[d.device_time_total for d in launched(e)]
-                for e in events if e.name == CALL_RANGE and e.device_type == DeviceType.CPU]
+    calls_events = [launched(e) for e in events
+                    if e.name == CALL_RANGE and e.device_type == DeviceType.CPU]
+    if by_card is not None:
+        for d in (d for c in calls_events for d in c):
+            by_card[d.device_index] = by_card.get(d.device_index, 0.0) + d.device_time_total
+    per_call = [[d.device_time_total for d in c] for c in calls_events]
     return per_call, warm, sum(map(len, device.values()))
 
 
 def kernel_device_ms(fn, torch, launches: int | None, label: str, calls: int = 20,
-                     kernel: str | None = "decide_match_kernel", flush=None) -> tuple:
+                     kernel: str | None = "decide_match_kernel", flush=None,
+                     by_card: dict | None = None) -> tuple:
     """(device ms per call, device events per call) of ``fn``: the events
     named ``kernel`` that each call launched, summed (every event with
     ``kernel=None``). Every one of
     the ``calls`` profiled calls must show ``launches`` such events (with
     ``kernel=None``: one count alike in every call, above 0); a profile
     short of that is taken again, three in all, and then the phase fails
-    with the counts. No other clock stands in for the device's."""
+    with the counts. No other clock stands in for the device's. ``by_card``
+    gets the complete profile's device ms per call by card index."""
     counts = []
     for attempt, warmup_s in enumerate(PROFILE_WARMUP_S, 1):
-        per_call, warm, seen = call_events(fn, torch, calls, kernel, flush, warmup_s)
+        cards: dict = {}
+        per_call, warm, seen = call_events(fn, torch, calls, kernel, flush, warmup_s, cards)
         counts = [len(c) for c in per_call]
         want = launches if kernel is not None else (counts[0] if counts else 0)
         if len(counts) == calls and want and all(n == want for n in counts):
+            if by_card is not None:
+                by_card.update({i: us / calls / 1e3 for i, us in sorted(cards.items())})
             return sum(map(sum, per_call)) / calls / 1e3, want
         print(f"device time {label}: profile {attempt} of 3 short: device events per call "
               f"{counts}, {want if kernel is not None else 'one count alike'} expected; "
@@ -551,42 +586,67 @@ def kernel_device_ms(fn, torch, launches: int | None, label: str, calls: int = 2
          f"call {counts}; {launches if kernel is not None else 'one count alike'} expected)")
 
 
-def device_times(timed: list, card: str, kernel: str | None = "decide_match_kernel") -> None:
+def device_times(timed: list, card: str, kernel: str | None = "decide_match_kernel",
+                 cards: list | None = None) -> None:
     """The device times of ``timed``'s calls, read with the profiler after
     the main path has run (a profiler session can leave later launches
     slower on the host, which would skew the main path's host-clock
     readings). ``timed`` holds (label, call, device events per call or
-    None, bound ms, record or None) from phases 3, 3b and 14; ``kernel``
-    names the events counted (None: all of them). Each call is read three
-    times: back to back (the inputs of 64-77 MB partly stay in the 50 MiB
-    L2, so this can beat the bound, which reads every input from memory),
-    and with the L2 flushed before every call by writing and by reading
-    ``L2_FLUSH_BYTES``. Each record's ``ms`` is the colder flushed
+    None, bound ms, record or None) from phases 3, 3b, 14 and 19;
+    ``kernel`` names the events counted (None: all of them). Each call is
+    read three times: back to back (the inputs of 64-77 MB partly stay in
+    the 50 MiB L2, so this can beat the bound, which reads every input
+    from memory), and with the L2 flushed before every call by writing and
+    by reading ``L2_FLUSH_BYTES``, on every card of ``cards`` (default the
+    current card; a call over several cards prints each card's share of
+    the colder reading). Each record's ``ms`` is the colder flushed
     reading, the time the bound is for."""
     import torch
 
-    buf = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-    flushes = {"writing": buf.zero_, "reading": buf.sum}
+    bufs = [torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=d)
+            for d in (cards or ["cuda"])]
+    flushes = {"writing": lambda: [b.zero_() for b in bufs],
+               "reading": lambda: [b.sum() for b in bufs]}
     seen = "profiler" if kernel else "profiler, every device event of the call"
     for label, fn, launches, bound_ms, record in timed:
         warm_ms, n = kernel_device_ms(fn, torch, launches, label, kernel=kernel)
-        cold = {how: kernel_device_ms(fn, torch, launches, label, kernel=kernel, flush=f)[0]
-                for how, f in flushes.items()}
-        ms = max(cold.values())
+        cold, shares = {}, {}
+        for how, f in flushes.items():
+            shares[how] = {}
+            cold[how] = kernel_device_ms(fn, torch, launches, label, kernel=kernel, flush=f,
+                                         by_card=shares[how])[0]
+        how = max(cold, key=cold.get)
+        ms = cold[how]
         if record is not None:
             record["ms"] = ms
+        per_card = ("" if len(shares[how]) < 2 else "; per card " + ", ".join(
+            f"cuda:{i} {v:.4f} ms" for i, v in shares[how].items()))
         print(f"device time {label}: cold L2 {ms:.4f} ms ({seen}; flushed by writing "
-              f"{cold['writing']:.4f} ms, by reading {cold['reading']:.4f} ms), "
+              f"{cold['writing']:.4f} ms, by reading {cold['reading']:.4f} ms{per_card}), "
               f"{bound_ms / ms * 100:.1f}% of the bound rate; back to back {warm_ms:.4f} ms "
               f"({bound_ms / warm_ms * 100:.1f}%, reads served from L2 in part); {n} device "
               f"events a call in every profiled call [{card}]")
-    del buf
+    del bufs
 
 
 def plan_text(plan) -> str:
     return (f"plan T={plan.tile} stages={plan.stages} grid={plan.grid} "
             f"{'bulk' if plan.bulk else 'plain'} (plain-path rows {plan.tail_rows}, "
             f"{plan.smem} B shared per block)")
+
+
+def exact(name: str, got, want, torch) -> int:
+    """Fails unless the kernel's outputs equal the plain version's in
+    dtype, shape and every value; returns the max abs error (0)."""
+    err = 0
+    for label, g, w in zip(("decision", "upsync", "counts", "seg_counts"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{name}: {label} is {g.dtype}{tuple(g.shape)}, plain "
+                 f"{w.dtype}{tuple(w.shape)}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    if err:
+        fail(f"{name}: kernel differs from the plain version (max abs err {err})")
+    return err
 
 
 def check_case(name: str, case, kw: dict, torch, vacuous_fails: bool = True):
@@ -601,14 +661,7 @@ def check_case(name: str, case, kw: dict, torch, vacuous_fails: bool = True):
     plan = cuda_kernels.last_plan
     want = cuda_kernels.decide_and_match_plain(*case, **kw)
     torch.cuda.synchronize()
-    err = 0
-    for label, g, w in zip(("decision", "upsync", "counts", "seg_counts"), got, want):
-        if g.dtype != w.dtype or g.shape != w.shape:
-            fail(f"{name}: {label} is {g.dtype}{tuple(g.shape)}, plain "
-                 f"{w.dtype}{tuple(w.shape)}")
-        err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-    if err:
-        fail(f"{name}: kernel differs from the plain version (max abs err {err})")
+    err = exact(name, got, want, torch)
     if vacuous_fails and (int(want[0].ne(0).sum()) == 0 or int(want[2].sum()) == 0 or (
             len(want) > 3 and int(want[3].sum()) == 0)):
         fail(f"{name}: vacuous case (no decisions, selector hits or segment counts)")
@@ -723,15 +776,7 @@ def sharded_kernel_phase(rng, torch, dev, card: str, timed: list) -> dict:
                  f"want {want_bulk})")
         got = (got[0].full(), got[1].full(), *got[2:])
         want = decide_and_match_plain(*case, **seg)
-        err = 0
-        for name, g, w in zip(("decision", "upsync", "counts", "seg_counts"), got, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                fail(f"sharded {label} over {spec}: {name} is {g.dtype}{tuple(g.shape)}, "
-                     f"plain {w.dtype}{tuple(w.shape)}")
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-        if err:
-            fail(f"sharded {label} over {spec}: differs from the plain version "
-                 f"(max abs err {err})")
+        err = exact(f"sharded {label} over {spec}", got, want, torch)
         if int(want[0].ne(0).sum()) == 0 or int(want[2].sum()) == 0:
             fail(f"sharded {label} over {spec}: vacuous case")
         call_ms = time_ms(lambda: decide_and_match_sharded(mesh, *args, **seg), torch, 30)
@@ -774,14 +819,21 @@ def assert_no_index_add(step, what: str) -> None:
         fail(f"{what}: the fleet step called index_add_")
 
 
-def sharded_step_phase(torch, dev, card: str, b: int = 131072, s: int = 64):
-    """4b. reconcile_step_fleet over a 4-shard state against the unsharded
-    step on the same card: byte-equal wires, the phase-4 ticks. Returns
-    the sharded step, for the ``index_add_`` check after the main path."""
+def sharded_step_phase(torch, dev, card: str, b: int = 131072, s: int = 64, mesh=None):
+    """4b. reconcile_step_fleet over a 4-shard state on ``dev`` (or over
+    ``mesh``) against the unsharded step on ``dev``: byte-equal wires, the
+    phase-4 ticks, one launch of the sharded kernel per card a tick.
+    Returns the sharded step, for the ``index_add_`` check after the main
+    path."""
     from kcp_tpu_torch.models import reconcile_model as tm
-    from kcp_tpu_torch.parallel.mesh import FLAGS, ShardedTensor, shard_state
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded
+    from kcp_tpu_torch.parallel.mesh import FLAGS, ShardedTensor, row_factor, shard_state
 
-    mesh = smoke_mesh("4", dev)
+    mesh = smoke_mesh("4", dev) if mesh is None else mesh
+    cards = len(mesh.local_devices)
+    where = (f"mesh {mesh.shape['tenants']} ({SMOKE_SHARDS} row shards of {dev})" if cards == 1
+             else f"mesh {row_factor(mesh)} (a row shard on each of "
+                  f"{[str(d) for d in mesh.local_devices]})")
     state, seg, packed, acks = step_case(np.random.default_rng(7), b, s, 1024, torch)
     one = [tm.state_from_numpy(state, dev), tm.to_device(seg, dev)]
     sh = [shard_state(state, mesh), ShardedTensor.put(tm.to_device(seg, dev), mesh, FLAGS)]
@@ -790,14 +842,20 @@ def sharded_step_phase(torch, dev, card: str, b: int = 131072, s: int = 64):
             _st, _sg, packed, acks = step_case(np.random.default_rng(8), b, s, 1024, torch)
         outs = []
         for side, kw in ((one, {}), (sh, {"mesh": mesh})):
+            before = decide_and_match_sharded.launches
             side[0], side[1], wire = tm.reconcile_step_fleet(
                 side[0], side[1], tm.to_device(packed, dev), tm.to_device(acks, dev),
                 patch_capacity=cap, seg_capacity=8, **kw)
             outs.append(tm.wire_to_numpy(wire))
-        torch.cuda.synchronize()
+            launched = decide_and_match_sharded.launches - before
+        sync_cards(torch)
+        if dev.type == "cuda" and launched != cards:
+            fail(f"sharded step over {where} tick {tick}: {launched} launches, want one per "
+                 f"card ({cards})")
         if outs[0].tobytes() != outs[1].tobytes():
             diff = np.flatnonzero(outs[0] != outs[1])
-            fail(f"sharded step tick {tick}: wire != unsharded wire at {diff[:10].tolist()}")
+            fail(f"sharded step over {where} tick {tick}: wire != unsharded wire at "
+                 f"{diff[:10].tolist()}")
         if bool(outs[0][1]) != (cap == 256):
             fail(f"sharded step tick {tick}: overflow flag {bool(outs[0][1])} at "
                  f"capacity {cap}")
@@ -809,10 +867,10 @@ def sharded_step_phase(torch, dev, card: str, b: int = 131072, s: int = 64):
 
     one_ms = time_ms(lambda: step(one), torch, 20)
     sh_ms = time_ms(lambda: step(sh, mesh=mesh), torch, 20)
-    print(f"sharded step: reconcile_step_fleet over mesh 4 ({SMOKE_SHARDS} row shards of "
-          f"{dev}) wire == unsharded card wire, 2 ticks at B={b} S={s} (acks, mask+segment "
-          f"stamps, overflow tick); device step {sh_ms:.4f} ms sharded vs {one_ms:.4f} ms "
-          f"unsharded, incl. upload [{card}]")
+    print(f"sharded step: reconcile_step_fleet over {where} wire == unsharded card wire, "
+          f"2 ticks at B={b} S={s} (acks, mask+segment stamps, overflow tick), "
+          f"{cards} sharded kernel launch{'es' if cards > 1 else ''} a tick; device step "
+          f"{sh_ms:.4f} ms sharded vs {one_ms:.4f} ms unsharded, incl. upload [{card}]")
     return lambda: step(sh, mesh=mesh)
 
 
@@ -2209,9 +2267,11 @@ def watchers_phase(card: str, gcs: "FullCollections") -> None:
 #: phase 18's row shards: a 2x2x1 mesh whose hosts are two processes
 A7_SPEC = "2x2x1"
 #: phase 18: one rank of the two-process serving mesh (``python -c``; env
-#: MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK): the seeded ticks of
-#: :func:`mesh_ticks` over its hosts block on cuda:0, its wires to a file,
-#: a JSON report on its last line
+#: MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK): the group formed and the
+#: mesh built for its serving device (``kcp start --distributed --mesh SPEC
+#: [--device DEV]`` does the same two calls), the seeded ticks of
+#: :func:`mesh_ticks` over its hosts block, its wires to a file, a JSON
+#: report on its last line
 RANK_CODE = (
     "import json, sys\n"
     "sys.path.insert(0, %r)\n"
@@ -2220,22 +2280,23 @@ RANK_CODE = (
     "import chip_smoke as cs\n"
     "from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded as kernel\n"
     "from kcp_tpu_torch.parallel.distributed import init_distributed\n"
-    "from kcp_tpu_torch.parallel.mesh import mesh_from_spec\n"
-    "init_distributed()\n"
-    "dev = torch.device('cuda', 0)\n"
-    "mesh = mesh_from_spec(cs.A7_SPEC, devices=[dev, dev])\n"
+    "from kcp_tpu_torch.parallel.mesh import mesh_on\n"
+    "device, spec = %r, %r\n"
+    "init_distributed(device=device)\n"
+    "mesh = mesh_on(spec, device)\n"
     "kernel.launches = 0\n"
-    "wires, ms = cs.mesh_ticks(mesh, torch, dev)\n"
+    "wires, ms = cs.mesh_ticks(mesh, torch, mesh.lead)\n"
     "launches = kernel.launches\n"
     "np.savez(%r %% dist.get_rank(), *wires)\n"
     "print(json.dumps({'rank': dist.get_rank(), 'world': dist.get_world_size(),\n"
     "      'backend': dist.get_backend(), 'process': mesh.process,\n"
-    "      'local_rows': mesh.local_rows, 'step_ms': ms, 'launches': launches}))\n"
+    "      'local_rows': mesh.local_rows, 'cards': [str(d) for d in mesh.local_devices],\n"
+    "      'current': torch.cuda.current_device(), 'step_ms': ms, 'launches': launches}))\n"
     "dist.destroy_process_group()\n")
 
 
 #: phase 18: seeded ticks, then timed steps, of each rank (one grouped
-#: launch of the kernel a step over the rank's two row shards)
+#: launch of the kernel a step on each of the rank's cards)
 A7_TICKS, A7_TIMED = 3, 10
 
 
@@ -2264,41 +2325,32 @@ def mesh_ticks(mesh, torch, dev, timed: int = A7_TIMED, b: int = 131072, s: int 
             _st, _sg, packed, acks = step_case(np.random.default_rng(7 + tick), b, s, 1024,
                                                torch)
         wires.append(step(cap))
-    torch.cuda.synchronize()
+    sync_cards(torch)
     t0 = time.perf_counter()
     for _ in range(timed):
         step(8192)
     return wires, (time.perf_counter() - t0) / timed * 1e3
 
 
-def distributed_phase(torch, dev, card: str) -> int:
-    """18. A7 on the card: two rank processes of one ``torch.distributed``
-    group (``init_distributed`` from the environment, 127.0.0.1), each
-    holding its hosts block of a ``2x2x1`` mesh on cuda:0 (two row shards),
-    run :func:`mesh_ticks` at the serving shape (131,072 x 64); each rank's
-    two row shards take one grouped launch on the card. One card cannot
-    hold two NCCL ranks, so the group is gloo and what crosses processes
-    is staged through host memory. Both ranks' wires must equal the
-    one-process ``2x2x1`` run's byte for byte (that run is held against
-    the unsharded step in 4b's way: every wire here carries the overflow
-    tick). Each rank launches the kernel once a step, over both its row
-    shards. Prints each rank's backend, step ms and launches. Returns the
-    ranks' launches."""
+def run_ranks(spec: str, device, want: list, label: str) -> list[dict]:
+    """Two rank processes of one ``torch.distributed`` group
+    (``init_distributed`` from the environment, 127.0.0.1), each serving
+    its hosts block of ``spec`` on ``device`` (None: the cards that
+    ``rank_plan`` gives it) through :data:`RANK_CODE`. Every wire of each
+    rank must equal ``want``'s byte for byte, and each rank must launch the
+    kernel once a step on each of its cards. Returns the ranks' reports."""
     import socket
     import tempfile
 
-    one = smoke_mesh(A7_SPEC, dev)
-    want, one_ms = mesh_ticks(one, torch, dev)
-    if not bool(want[1][1]):
-        fail("A7: the overflow tick did not overflow")
     tmp = tempfile.mkdtemp(prefix="kcp_a7_")
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
-    env = {k: v for k, v in os.environ.items() if not k.startswith("KCP_")}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KCP_") and k not in ("LOCAL_RANK", "LOCAL_WORLD_SIZE")}
     env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
-               GLOO_SOCKET_IFNAME="lo")
-    code = RANK_CODE % (os.path.dirname(os.path.abspath(__file__)),
+               GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo", NCCL_DEBUG="WARN")
+    code = RANK_CODE % (os.path.dirname(os.path.abspath(__file__)), device, spec,
                         os.path.join(tmp, "rank%d.npz"))
     procs = [subprocess.Popen([sys.executable, "-c", code], env={**env, "RANK": str(r)},
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -2313,30 +2365,177 @@ def distributed_phase(torch, dev, card: str) -> int:
                 p.kill()
                 p.wait()
     if outs is None:
-        fail("A7: a rank outlived 300 s")
-    launches = 0
+        fail(f"{label}: a rank outlived 300 s")
+    reports = []
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            fail(f"A7 rank {rank}: exit {p.returncode}; stderr {err[-2000:]}")
+            fail(f"{label} rank {rank}: exit {p.returncode}; stderr {err[-2000:]}")
         rep = json.loads(out.strip().splitlines()[-1])
         got = np.load(os.path.join(tmp, f"rank{rank}.npz"))
         for tick, w in enumerate(want):
             if got[f"arr_{tick}"].tobytes() != w.tobytes():
-                fail(f"A7 rank {rank} tick {tick}: wire != the one-process {A7_SPEC} wire")
+                fail(f"{label} rank {rank} tick {tick}: wire != the one-process {spec} wire")
         if rep["world"] != 2 or rep["process"] != rank:
-            fail(f"A7 rank {rank}: {rep}")
-        if rep["launches"] != A7_TICKS + A7_TIMED:
-            fail(f"A7 rank {rank}: {rep['launches']} kernel launches in "
-                 f"{A7_TICKS + A7_TIMED} steps (want one grouped launch a step)")
-        launches += rep["launches"]
+            fail(f"{label} rank {rank}: {rep}")
+        steps = A7_TICKS + A7_TIMED
+        if rep["launches"] != steps * len(rep["cards"]):
+            fail(f"{label} rank {rank}: {rep['launches']} kernel launches in {steps} steps on "
+                 f"{rep['cards']} (want one grouped launch a step on each card)")
+        reports.append(rep)
+    return reports
+
+
+def distributed_phase(torch, dev, card: str) -> tuple[int, list, list]:
+    """18. A7 on the card: two rank processes of one ``torch.distributed``
+    group, each holding its hosts block of a ``2x2x1`` mesh on cuda:0 (two
+    row shards), run :func:`mesh_ticks` at the serving shape (131,072 x
+    64); each rank's two row shards take one grouped launch on the card.
+    Both ranks serve on the one card they name, so the group is gloo on
+    any host (``rank_plan``: NCCL refuses two ranks on one card) and what
+    crosses processes is staged through host memory. Both ranks' wires
+    must equal the one-process ``2x2x1`` run's byte for byte (that run is
+    held against the unsharded step in 4b's way: every wire here carries
+    the overflow tick). Each rank launches the kernel once a step, over
+    both its row shards. Prints each rank's backend, step ms and launches.
+    Returns the ranks' launches, their reports and the one-process
+    wires."""
+    one = smoke_mesh(A7_SPEC, dev)
+    want, one_ms = mesh_ticks(one, torch, dev)
+    if not bool(want[1][1]):
+        fail("A7: the overflow tick did not overflow")
+    reports = run_ranks(A7_SPEC, "cuda:0", want, "A7")
+    for rank, rep in enumerate(reports):
+        if rep["backend"] != "gloo" or rep["cards"] != ["cuda:0"]:
+            fail(f"A7 rank {rank}: {rep['backend']} on {rep['cards']}, want gloo on cuda:0")
         print(f"A7 rank {rank}/2 ({rep['backend']}, row shards {rep['local_rows']} of "
-              f"{A7_SPEC} on {dev}): 3 ticks at B=131072 S=64 wire == the one-process "
-              f"{A7_SPEC} wire byte for byte (overflow tick included); step "
+              f"{A7_SPEC} on {rep['cards'][0]}): 3 ticks at B=131072 S=64 wire == the "
+              f"one-process {A7_SPEC} wire byte for byte (overflow tick included); step "
               f"{rep['step_ms']:.3f} ms incl. upload, collectives, staging through host "
               f"memory and the wire's fetch; {rep['launches']} decide_and_match launches "
               f"[{card}]")
     print(f"A7: the one-process {A7_SPEC} step {one_ms:.3f} ms on the same card [{card}]")
+    return sum(r["launches"] for r in reports), reports, want
+
+
+def visible_cards(torch, label: str) -> list | None:
+    """The visible cards when there are two or more; else prints the
+    phase's one line and returns None."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"{label}: not run: needs \u2265 2 cards, {n} visible")
+        return None
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def multicard_loop_phase(torch, card: str, loop_5b: dict, timed: list) -> int:
+    """19. The fused loop over a card per row shard, where two cards or
+    more are visible (``mesh_from_spec(str(n))`` over the n visible
+    cards, the default of ``kcp start --mesh N``): phase 4b's seeded ticks
+    against the unsharded step on cuda:0, byte-equal, one launch per card
+    a tick; then phase 5's closed loop through ``FusedCore(mesh=...)``,
+    one launch per card a tick, beside phase 5b's one-card mesh ``4``;
+    then the sharded kernel at the serving shape against its plain
+    version, one launch per card a call, added to ``timed`` for its
+    counted, cold device time after the profiler starts (the n launches of
+    a call on their n cards). Returns the loop's launches (0 when not
+    run)."""
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_plain, decide_and_match_sharded
+    from kcp_tpu_torch.parallel import mesh as pm
+    from kcp_tpu_torch.syncer.core import FusedCore
+
+    label = "phase 19, the fused loop over a card per row shard"
+    cards = visible_cards(torch, label)
+    if cards is None:
+        return 0
+    n, dev = len(cards), cards[0]
+    mesh = pm.mesh_from_spec(str(n))
+    if list(mesh.local_devices) != cards:
+        fail(f"{label}: mesh {n} lies on {mesh.local_devices}, want one row shard a card")
+    sharded_step_phase(torch, dev, card, mesh=mesh)
+    core = FusedCore(mesh=mesh, batch_window=0.0005)
+    out, launches = main_path_phase(
+        core, torch, decide_and_match_sharded, n, card,
+        f"main path, a card per row shard (mesh {n} over {n} cards: one launch per card a "
+        f"tick)")
+    print(f"main path over {n} cards against phase 5b's mesh 4 on one card: "
+          f"{out['ms_per_tick']:.3f} vs {loop_5b['ms_per_tick']:.3f} ms/tick, convergence "
+          f"p50 {out['convergence_p50_ms']:.3f} vs {loop_5b['convergence_p50_ms']:.3f} ms, "
+          f"p99 {out['convergence_p99_ms']:.3f} vs {loop_5b['convergence_p99_ms']:.3f} ms "
+          f"(host clock, one loop each) [{card}]")
+    rng = np.random.default_rng(2026)
+    sh = SERVING
+    case = (*kernel_case(rng, sh["b"], sh["s"], sh["l"], sh["c"], sh["per_row"], torch, dev),
+            segments(rng, sh["b"], torch, dev))
+    layouts = [pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.ROWS, pm.FLAGS, pm.REPLICATED,
+               pm.FLAGS]
+    args = [pm.ShardedTensor.put(x, mesh, lay) for x, lay in zip(case, layouts)]
+    seg = dict(seg_capacity=SEG_CAPACITY)
+    before = decide_and_match_sharded.launches
+    got = decide_and_match_sharded(mesh, *args, **seg)
+    sync_cards(torch)
+    per_call = decide_and_match_sharded.launches - before
+    if per_call != n:
+        fail(f"{label}: {per_call} launches a call over {n} cards (want one per card)")
+    if {blk[0].device for blk in got[0].blocks} != set(cards):
+        fail(f"{label}: decisions on {[blk[0].device for blk in got[0].blocks]}")
+    want = decide_and_match_plain(*case, **seg)
+    exact(f"{label}: the sharded kernel over {n} cards", (got[0].full(), got[1].full(),
+                                                           *got[2:]), want, torch)
+    call_ms = time_ms(lambda: decide_and_match_sharded(mesh, *args, **seg), torch, 30)
+    plain_ms = time_ms(lambda: decide_and_match_plain(*case, **seg), torch, 10)
+    bound_ms, bound_by, nbytes = bound(case, want, launches=n)
+    text = (f"decide_and_match_sharded [serving: B={sh['b']} S={sh['s']} mask=row L={sh['l']} "
+            f"C={sh['c']}, fleet form, mesh {n}, a row shard on each of {n} cards]")
+    print(f"kernel {text}: equal (tolerance: exact); {per_call} launches per call, one per "
+          f"card; {call_ms:.4f} ms per back-to-back call (events), plain {plain_ms:.4f} ms "
+          f"on {dev}, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B over {n} cards' "
+          f"memory read as one card's); library call: none [{card}]")
+    timed.append((f"{text}, a launch per card", lambda: decide_and_match_sharded(
+        mesh, *args, **seg), n, bound_ms, None))
     return launches
+
+
+def nccl_phase(torch, card: str, gloo: list, want_18: list) -> int:
+    """20. A7 over NCCL, where two cards or more are visible: two rank
+    processes, each with ``init_distributed()`` and ``mesh_on(spec, None)``
+    (``kcp start --distributed --mesh SPEC`` without ``--device``), so each
+    serves on cards of its own (``rank_plan``): ``2x2x1`` with two cards a
+    rank on four cards or more, else ``2x1x1`` with one each. Each rank
+    must report backend ``nccl`` and its own cards (the current card its
+    block's lead), launch the kernel once a step on each of its cards, and
+    give wires byte-equal to the one-process run over the same spec on the
+    visible cards (which must equal phase 18's). Prints each rank's step
+    ms beside phase 18's gloo ranks on cuda:0. Returns the ranks'
+    launches (0 when not run)."""
+    from kcp_tpu_torch.parallel.mesh import mesh_from_spec
+
+    label = "phase 20, A7 over NCCL"
+    cards = visible_cards(torch, label)
+    if cards is None:
+        return 0
+    spec = "2x2x1" if len(cards) >= 4 else "2x1x1"
+    one = mesh_from_spec(spec)
+    want, one_ms = mesh_ticks(one, torch, one.lead)
+    if any(a.tobytes() != b.tobytes() for a, b in zip(want, want_18)):
+        fail(f"{label}: the one-process {spec} wires over {list(one.local_devices)} != "
+             f"phase 18's {A7_SPEC} wires on one card")
+    reports = run_ranks(spec, None, want, label)
+    held = [c for rep in reports for c in rep["cards"]]
+    if len(set(held)) != len(held):
+        fail(f"{label}: two ranks share a card: {[rep['cards'] for rep in reports]}")
+    for rank, (rep, g) in enumerate(zip(reports, gloo)):
+        if rep["backend"] != "nccl" or f"cuda:{rep['current']}" != rep["cards"][0]:
+            fail(f"{label} rank {rank}: backend {rep['backend']}, current card "
+                 f"cuda:{rep['current']}, cards {rep['cards']}: want nccl led by its own")
+        print(f"A7 over NCCL rank {rank}/2 (row shards {rep['local_rows']} of {spec} on "
+              f"{rep['cards']}): 3 ticks at B=131072 S=64 wire == the one-process {spec} "
+              f"wire byte for byte (overflow tick included); step {rep['step_ms']:.3f} ms "
+              f"(nccl) vs {g['step_ms']:.3f} ms (phase 18, gloo on cuda:0); "
+              f"{rep['launches']} decide_and_match launches, one a step on each card "
+              f"[{card}]")
+    print(f"A7 over NCCL: the one-process {spec} step {one_ms:.3f} ms over "
+          f"{[str(d) for d in one.local_devices]} [{card}]")
+    return sum(r["launches"] for r in reports)
 
 
 def main() -> None:
@@ -2519,14 +2718,28 @@ def main() -> None:
     #           hosts block of a 2x2x1 mesh on the card, against the
     #           one-process 2x2x1 run (host clock, before the profiler too)
     t0 = time.perf_counter()
-    a7_launches = distributed_phase(torch, dev, card)
+    a7_launches, a7_reports, a7_wires = distributed_phase(torch, dev, card)
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 19. the fused loop over a card per row shard; 20. A7 over NCCL,
+    #           each rank on cards of its own: both only where two cards or
+    #           more are visible, else one "not run" line each (host clock,
+    #           before the profiler too; 19's kernel device time after it)
+    t0 = time.perf_counter()
+    multicard_timed = []
+    multicard_launches = multicard_loop_phase(torch, card, _out_s, multicard_timed)
+    nccl_launches = nccl_phase(torch, card, a7_reports, a7_wires)
+    if multicard_timed:
+        print(f"phases 19-20: {time.perf_counter() - t0:.1f} s")
 
     # ---- 3, 3b, 14: the kernels' device times and 14's compiled
     #          compositions'; 4, 4b: no index_add_ in either step (profiled,
     #          so after the main path's readings)
     device_times(timed, card)
     device_times(compiled_timed, card, kernel=None)
+    if multicard_timed:
+        device_times(multicard_timed, card,
+                     cards=[torch.device("cuda", i) for i in range(torch.cuda.device_count())])
     assert_no_index_add(card_step, "step")
     assert_no_index_add(sharded_step, "sharded step")
     print("step, sharded step: no index_add_ (profiler, CPU activity)")
@@ -2565,7 +2778,8 @@ def main() -> None:
     record_sharded.update(name="decide_and_match_sharded", route="cuda",
                           source="kcp_tpu_torch/csrc/decide_match.cu",
                           replaces="kcp_tpu/ops/pallas_kernels.py:223",
-                          launches=launches_sharded + a7_launches, library_ms=None)
+                          launches=(launches_sharded + a7_launches + multicard_launches
+                                    + nccl_launches), library_ms=None)
     print("recorded before the redesign, not measured in this run (PERF.md §6): "
           + ", ".join(f"{r['name']} {RECORDED_EARLIER_MS[r['name']]} ms on the device "
                       f"against {r['ms']:.4f} ms now" for r in (record, record_sharded)))

@@ -163,14 +163,19 @@ def build_parser():
                             "(tenants), NxM (tenants x slots), NxMxK (hosts "
                             "x tenants x slots), or 'auto' (one tenants "
                             "shard per visible CUDA device; with "
-                            "--distributed, hosts = the processes), e.g. "
+                            "--distributed, hosts = the processes and each "
+                            "process's own cards), e.g. "
                             "--mesh 4x2")
     start.add_argument("--distributed", action="store_true",
                        help="form the torch.distributed process group "
                             "before serving (multi-host: every process "
                             "holds its own hosts block of the mesh's row "
                             "shards and drives the same ticks; NCCL when "
-                            "each process has a card, else gloo)")
+                            "each process serves on cards of its own, i.e. "
+                            "without --device, an equal block of the "
+                            "visible cards each; gloo when several "
+                            "processes of a host share the --device card, "
+                            "and on the CPU)")
     start.add_argument("--coordinator", default="",
                        help="process-group address (host:port); env "
                             "MASTER_ADDR/MASTER_PORT also works")

@@ -20,6 +20,7 @@ from __future__ import annotations
 import datetime
 import logging
 import os
+from typing import NamedTuple
 
 from .mesh import Mesh, _as_devices, _group, _visible_devices, make_mesh, make_multihost_mesh
 
@@ -38,26 +39,45 @@ def _local_ranks(world: int, rank: int) -> tuple[int, int]:
     return local_world, int(os.environ.get("LOCAL_RANK", rank % local_world))
 
 
-def _rank_devices(devs: list, world: int, rank: int) -> list:
-    """This process's share of the host's cards: an equal block each when
-    there are as many cards as processes on the host, else one card
-    (shared) each."""
-    local_world, local_rank = _local_ranks(world, rank)
-    if len(devs) >= local_world:
-        per = len(devs) // local_world
-        return devs[local_rank * per:(local_rank + 1) * per]
-    return [devs[local_rank % len(devs)]]
+class RankPlan(NamedTuple):
+    """What one process of the group serves on: the group's backend and
+    this process's devices (its mesh blocks' default device list)."""
+
+    backend: str
+    devices: list
 
 
-def _backend(world: int, rank: int, device=None) -> str:
-    """NCCL when each process of this host has a card of its own, gloo
-    otherwise (one card shared by several processes, or the CPU)."""
+def rank_plan(world: int, rank: int, device=None) -> RankPlan:
+    """THE rule for a process's backend and serving devices, read by
+    :func:`init_distributed` and by every mesh a process of the group
+    builds from the visible cards (``mesh_from_spec``, ``"auto"``).
+
+    NCCL only where this process serves on cards that no other process of
+    the host serves on, since NCCL refuses two ranks on one card; then its
+    devices are an equal block of the visible cards (``device`` None or a
+    bare ``"cuda"``, as many cards as processes on the host or more), or
+    the one card it names when it is the host's only process. gloo
+    otherwise: a named card shared by several processes of the host (each
+    process knows only its own ``device``, so a named card counts as
+    shared), fewer cards than processes (one card each, shared), the CPU,
+    or no card (no devices)."""
     import torch
 
-    if device is not None and torch.device(device).type != "cuda":
-        return "gloo"
+    local_world, local_rank = _local_ranks(world, rank)
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            return RankPlan("gloo", [dev])
+        if dev.index is not None:
+            return RankPlan("nccl" if local_world == 1 else "gloo", [dev])
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    return "nccl" if n and n >= _local_ranks(world, rank)[0] else "gloo"
+    if n == 0:
+        return RankPlan("gloo", [])
+    cards = [torch.device("cuda", i) for i in range(n)]
+    if n >= local_world:
+        per = n // local_world
+        return RankPlan("nccl", cards[local_rank * per:(local_rank + 1) * per])
+    return RankPlan("gloo", [cards[local_rank % n]])
 
 
 def init_distributed(coordinator: str | None = None,
@@ -71,10 +91,10 @@ def init_distributed(coordinator: str | None = None,
     Explicit args win; otherwise ``MASTER_ADDR``:``MASTER_PORT`` (as a
     ``tcp://`` init method), ``WORLD_SIZE`` and ``RANK``. ``_dry_run``
     only assembles (the argument tests). An explicit single process is a
-    no-op. The backend is NCCL when each process of this host has a card
-    of its own, gloo otherwise (``device`` is the serving device the caller
-    asked for, if any: the CPU takes gloo); every collective fails after
-    :data:`DIST_TIMEOUT_S` instead of hanging.
+    no-op. The backend and this process's current card come from
+    :func:`rank_plan` (``device`` is the serving device the caller asked
+    for, if any); every collective fails after :data:`DIST_TIMEOUT_S`
+    instead of hanging.
     """
     kwargs: dict = {}
     if coordinator is None and os.environ.get("MASTER_ADDR"):
@@ -101,14 +121,23 @@ def init_distributed(coordinator: str | None = None,
         log.info("process group already formed; skipping init_process_group")
         return kwargs
     world, rank = kwargs.get("world_size", 1), kwargs.get("rank", 0)
-    backend = _backend(world, rank, device)
-    if backend == "nccl":
-        torch.cuda.set_device(_rank_devices(_visible_devices(), world, rank)[0])
-    dist.init_process_group(backend=backend,
+    plan = rank_plan(world, rank, device)
+    if plan.devices and plan.devices[0].type == "cuda":
+        # the lead of this process's block: NCCL's communicator card and
+        # the default of device=None
+        torch.cuda.set_device(plan.devices[0])
+    dist.init_process_group(backend=plan.backend,
                             timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S), **kwargs)
-    log.info("process group up (%s): process %d/%d", backend, dist.get_rank(),
-             dist.get_world_size())
+    log.info("process group up (%s): process %d/%d on %s", plan.backend, dist.get_rank(),
+             dist.get_world_size(), [str(d) for d in plan.devices])
     return kwargs
+
+
+def _own_cards(world: int, rank: int) -> list:
+    """This process's default mesh devices: every visible card alone, its
+    :func:`rank_plan` cards in a group (raises without a card)."""
+    cards = _visible_devices()
+    return cards if world == 1 else rank_plan(world, rank).devices
 
 
 def pod_serving_mesh(slots: int = 1, devices: list | None = None) -> Mesh:
@@ -116,15 +145,9 @@ def pod_serving_mesh(slots: int = 1, devices: list | None = None) -> Mesh:
     more than one process, hosts-major (``hosts`` = the world size, this
     process's hosts block the rank's, tenants over its devices); else flat
     tenants over this process's devices. ``devices`` are this process's
-    (default: its share of the visible CUDA devices; raises without a
-    card)."""
+    (default: its :func:`rank_plan` cards; raises without a card)."""
     world, rank = _group()
-    if devices is not None:
-        devs = _as_devices(devices)
-    else:
-        devs = _visible_devices()
-        if world > 1:
-            devs = _rank_devices(devs, world, rank)
+    devs = _as_devices(devices) if devices is not None else _own_cards(world, rank)
     if slots < 1 or len(devs) % slots:
         raise ValueError(
             f"slots={slots} does not divide this process's {len(devs)} devices; "

@@ -31,8 +31,10 @@ cuda:0``, :func:`mesh_on`) holds every row shard there. Every shard is
 still a separate allocation. The fused kernel takes the row shards of one
 card in one launch (``ops.cuda_kernels.decide_and_match_shards``): on a
 repeated device a launch covers several shards, on a host with a card per
-row shard each launch covers one shard, and the card smoke runs only the
-former (``tests/test_torch_cuda.py`` holds the latter on several cards).
+row shard each launch covers one shard (the card smoke runs the latter
+where it sees two cards or more). In a group of processes, a mesh built
+without ``devices=`` takes this process's own cards, and on an NCCL group
+no other (``distributed.rank_plan``).
 Copies between devices go through
 ``Tensor.to``, whose cross-device path orders the two devices' current
 streams with events; between shards of one device it is a no-op.
@@ -147,23 +149,25 @@ def mesh_from_spec(spec: str, devices: list | None = None) -> Mesh:
     ``distributed.pod_serving_mesh`` (hosts-major over the processes of a
     ``torch.distributed`` group of more than one, else flat tenants over
     this process's devices). ``devices`` defaults to the visible CUDA
-    devices and may repeat a device. In such a group, a 3-D spec whose
-    hosts equal the world size spans the processes: ``devices`` are then
-    this process's own (tenants x slots of them).
+    devices, in a group of more than one process to this process's own
+    (``distributed.rank_plan``), and may repeat a device. In such a group,
+    a 3-D spec whose hosts equal the world size spans the processes:
+    ``devices`` are then this process's own (tenants x slots of them).
     """
     if spec.strip().lower() == "auto":
         from .distributed import pod_serving_mesh
 
         return pod_serving_mesh(devices=devices)
     dims = _spec_dims(spec)
-    devs = _as_devices(devices) if devices is not None else _visible_devices()
     world, rank = _group()
+    if devices is not None:
+        devs = _as_devices(devices)
+    else:  # every visible card, or in a group this process's own
+        from .distributed import _own_cards
+
+        devs = _own_cards(world, rank)
     if len(dims) == 3 and world > 1 and dims[0] == world:
         h, t, s = dims
-        if devices is None:  # this process's share of the host's cards
-            from .distributed import _rank_devices
-
-            devs = _rank_devices(devs, world, rank)
         return make_multihost_mesh(hosts=h, tenants=t, slots=s, devices=devs[:t * s],
                                    process=rank)
     n = int(np.prod(dims))
@@ -193,7 +197,9 @@ def _spec_dims(spec: str) -> list[int]:
 def mesh_on(spec: str, device: "str | torch.device | None" = None) -> Mesh:
     """The mesh of ``spec`` for an entry point's ``device`` argument:
     ``None`` (or a bare ``"cuda"``) spreads it over the visible CUDA
-    devices; a named device (``"cpu"``, ``"cuda:1"``) holds every shard."""
+    devices (in a group, this process's own); a named device (``"cpu"``,
+    ``"cuda:1"``) holds every shard. ``init_distributed`` given the same
+    ``device`` picks the backend that fits (``distributed.rank_plan``)."""
     if device is None or torch.device(device) == torch.device("cuda"):
         return mesh_from_spec(spec)
     if spec.strip().lower() == "auto":
@@ -245,9 +251,32 @@ def make_multihost_mesh(hosts: int, tenants: int | None = None, slots: int = 1,
                     (HOSTS_AXIS, TENANTS_AXIS, SLOTS_AXIS))
     if not 0 <= process < hosts:
         raise ValueError(f"process {process} is not a hosts index of {hosts}")
+    _check_own_cards(devs)
     grid = np.full((hosts, tenants, slots), None, dtype=object)
     grid[process] = _grid(devs, (tenants, slots))
     return Mesh(grid, (HOSTS_AXIS, TENANTS_AXIS, SLOTS_AXIS), process=process)
+
+
+def _check_own_cards(devs: list[torch.device]) -> None:
+    """On an NCCL group, this process's row shards lie on its own cards
+    (``distributed.rank_plan``): NCCL refuses a card that two ranks use,
+    and takes no CPU tensor."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_backend() != "nccl":
+        return
+    from .distributed import rank_plan
+
+    world, rank = _group()
+    own = rank_plan(world, rank).devices
+    indices = {o.index for o in own}
+    bad = [str(d) for d in devs if d.type != "cuda"
+           or (d.index if d.index is not None else torch.cuda.current_device()) not in indices]
+    if bad:
+        raise ValueError(
+            f"process {rank} of an NCCL group holds its row shards on its own cards "
+            f"{[str(o) for o in own]}, not on {bad}; pass no devices, or form the group "
+            f"with init_distributed(device=...) naming the card the processes share (gloo)")
 
 
 def row_factor(mesh: Mesh) -> int:

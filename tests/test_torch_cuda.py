@@ -7,7 +7,9 @@ the quota ledger fed by the kernel's per-segment counts, and the fleet
 solver on the card against its numpy twin, alone and through ``kcp
 start`` with fleet placement on, and the scenario harness's
 ``capacity-skew-binpack`` and ``fleet-churn`` with their device work on
-the card.
+the card. Where two cards or more are visible: the kernel and the step
+over a row shard on each card, and two NCCL ranks on cards of their own
+(run those on a four-card machine).
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports neither JAX nor the JAX package, so on a machine
@@ -316,6 +318,148 @@ def test_sharded_fleet_step_on_card_equals_unsharded(cuda_device):
             wires.append(tm.wire_to_numpy(wire))
         assert wires[0].tobytes() == wires[1].tobytes(), tick
         assert bool(wires[0][1]) == (cap == 64)
+
+
+def _two_cards() -> int:
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA cards or more, {n} visible")
+    return n
+
+
+def _fleet_ticks(b: int = 8192, s: int = 32):
+    """A seeded fleet state and two chained ticks (the second overflows)."""
+    rng = np.random.default_rng(12)
+    state = tm.example_state(b=b, s=s, r=16, p=8, l=1, c=8, dirty_frac=0.2)
+    state = state._replace(status_mask=rng.random((b, s)) < 0.2)
+    seg = (np.arange(b) // 1500).astype(np.int32)  # segments straddle shards
+    ticks = []
+    for tick, cap in enumerate((4096, 64)):
+        acks = np.full(64, -1, np.int32)
+        acks[:4] = [1, 2050, 4100, 8000]
+        ticks.append((tm.pack_deltas(tm.example_deltas(b=b, s=s, d=128, seed=tick)), acks,
+                      cap))
+    return state, seg, ticks
+
+
+def test_sharded_fleet_step_across_cards_equals_unsharded(cuda_device):
+    """A step over a row shard on each visible card gives the unsharded
+    step's wire on cuda:0, bytes for bytes, over two chained ticks (the
+    second overflows), with one sharded kernel launch per card a tick."""
+    from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded
+    from kcp_tpu_torch.parallel.mesh import FLAGS, ShardedTensor, mesh_from_spec, shard_state
+
+    n = _two_cards()
+    mesh = mesh_from_spec(str(n))
+    assert mesh.local_devices == tuple(torch.device("cuda", i) for i in range(n))
+    state, seg, ticks = _fleet_ticks()
+    dev = mesh.lead
+    one = [tm.state_from_numpy(state, dev), tm.to_device(seg, dev)]
+    sh = [shard_state(state, mesh), ShardedTensor.put(tm.to_device(seg, dev), mesh, FLAGS)]
+    for tick, (packed, acks, cap) in enumerate(ticks):
+        wires = []
+        for side, kw in ((one, {}), (sh, {"mesh": mesh})):
+            before = decide_and_match_sharded.launches
+            side[0], side[1], wire = tm.reconcile_step_fleet(
+                side[0], side[1], tm.to_device(packed, dev), tm.to_device(acks, dev),
+                patch_capacity=cap, seg_capacity=8, **kw)
+            wires.append(tm.wire_to_numpy(wire))
+        assert decide_and_match_sharded.launches - before == n, tick
+        assert wires[0].tobytes() == wires[1].tobytes(), tick
+        assert bool(wires[0][1]) == (cap == 64)
+    assert {blk[0].device for blk in sh[0].up_vals.blocks} == set(mesh.local_devices)
+
+
+_NCCL_RANK = r"""
+import json, sys
+sys.path.insert(0, REPO)
+import numpy as np, torch
+import torch.distributed as dist
+from kcp_tpu_torch.models import reconcile_model as tm
+from kcp_tpu_torch.ops.cuda_kernels import decide_and_match_sharded as kernel
+from kcp_tpu_torch.parallel import mesh as pmesh
+from kcp_tpu_torch.parallel.distributed import init_distributed
+
+init_distributed()
+mesh = pmesh.mesh_on("2x1x1", None)
+dev = mesh.lead
+case = np.load(CASE)
+state = tm.ReconcileState(*(case[f] for f in tm.ReconcileState._fields))
+sh = [pmesh.shard_state(state, mesh),
+      pmesh.ShardedTensor.put(tm.to_device(case["seg"], dev), mesh, pmesh.FLAGS)]
+wires = []
+for tick, cap in enumerate(case["caps"].tolist()):
+    sh[0], sh[1], wire = tm.reconcile_step_fleet(
+        sh[0], sh[1], tm.to_device(case[f"packed{tick}"], dev),
+        tm.to_device(case[f"acks{tick}"], dev), patch_capacity=cap, seg_capacity=8,
+        mesh=mesh)
+    wires.append(tm.wire_to_numpy(wire).tolist())
+print(json.dumps({"backend": dist.get_backend(), "cards": [str(d) for d in mesh.local_devices],
+                  "current": torch.cuda.current_device(), "launches": kernel.launches,
+                  "wires": wires}))
+dist.destroy_process_group()
+"""
+
+
+def test_two_nccl_ranks_wires_equal_the_one_process_mesh(cuda_device, tmp_path):
+    """Two rank processes, each serving on a card of its own (no device:
+    ``init_distributed`` picks NCCL), over ``2x1x1``: each rank reports
+    ``nccl`` on its own card, launches once a tick, and every wire equals
+    the one-process ``2x1x1`` run's over the visible cards."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from kcp_tpu_torch.parallel.mesh import FLAGS, ShardedTensor, mesh_from_spec, shard_state
+
+    _two_cards()
+    state, seg, ticks = _fleet_ticks()
+    case = {f: np.asarray(getattr(state, f)) for f in tm.ReconcileState._fields}
+    case.update(seg=seg, caps=np.array([cap for _p, _a, cap in ticks]))
+    for tick, (packed, acks, _cap) in enumerate(ticks):
+        case[f"packed{tick}"], case[f"acks{tick}"] = packed, acks
+    np.savez(tmp_path / "case.npz", **case)
+    mesh = mesh_from_spec("2x1x1")
+    dev = mesh.lead
+    sh = [shard_state(state, mesh), ShardedTensor.put(tm.to_device(seg, dev), mesh, FLAGS)]
+    want = []
+    for packed, acks, cap in ticks:
+        sh[0], sh[1], wire = tm.reconcile_step_fleet(
+            sh[0], sh[1], tm.to_device(packed, dev), tm.to_device(acks, dev),
+            patch_capacity=cap, seg_capacity=8, mesh=mesh)
+        want.append(tm.wire_to_numpy(wire).tolist())
+    assert bool(want[1][1]), "overflow coverage went vacuous"
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("LOCAL_RANK", "LOCAL_WORLD_SIZE") and not k.startswith("KCP_")}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+               NCCL_SOCKET_IFNAME="lo")
+    code = _NCCL_RANK.replace("REPO", repr(repo)).replace("CASE", repr(str(tmp_path / "case.npz")))
+    procs = [subprocess.Popen([sys.executable, "-c", code], env={**env, "RANK": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    got = []
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        got.append(json.loads(out.strip().splitlines()[-1]))
+    assert [g["backend"] for g in got] == ["nccl", "nccl"]
+    assert got[0]["cards"] != got[1]["cards"]
+    for g in got:
+        assert len(g["cards"]) == 1 and g["cards"][0] == f"cuda:{g['current']}"
+        assert g["launches"] == len(ticks)
+        assert g["wires"] == want
 
 
 @pytest.mark.parametrize("t", [1, 7, 256])
