@@ -20,6 +20,12 @@ docs/operations.md (delimited by ``<!-- trace-spans:begin -->`` /
 must be emitted by code — both directions, so the phase table an
 operator reads while chasing a convergence regression can never drift
 from what the tracer actually records.
+
+The port documents what only it registers or records (the fused tick's
+timeline: its spans, between the same markers, and its instruments) in
+its own operator document, docs/operations_torch.md, read beside
+docs/operations.md: a name documented in either counts, and a stale row
+is reported against the file that holds it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import re
 from .base import Finding, RepoChecker, SourceFile, attr_chain
 
 DOCS_REL = os.path.join("docs", "operations.md")
+#: the port's own operator document, read beside :data:`DOCS_REL`
+PORT_DOCS_REL = os.path.join("docs", "operations_torch.md")
 
 #: a doc token with one of these suffixes claims to be a metric name
 METRIC_SUFFIXES = ("_total", "_seconds", "_bytes", "_size", "_depth",
@@ -180,10 +188,14 @@ class MetricsDocChecker(RepoChecker):
                    repo_root: str) -> list[Finding]:
         findings: list[Finding] = []
         literals, globs = collect_code_metrics(files)
-        docs_path = os.path.join(repo_root, DOCS_REL)
-        tokens = collect_doc_tokens(docs_path)
+        # doc token -> (the document that holds it, its first line)
+        tokens: dict[str, tuple[str, int]] = {}
+        for rel in (DOCS_REL, PORT_DOCS_REL):
+            for tok, lineno in collect_doc_tokens(
+                    os.path.join(repo_root, rel)).items():
+                tokens.setdefault(tok, (rel, lineno))
         if not tokens and not literals:
-            return self._check_spans(files, docs_path)
+            return self._check_spans(files, repo_root)
         concrete = {t: _doc_token_concrete(t) for t in tokens}
 
         # code -> docs: every registered metric is documented
@@ -204,7 +216,7 @@ class MetricsDocChecker(RepoChecker):
                     f"<name> placeholder form)"))
 
         # docs -> code: every metric-looking doc token is registered
-        for tok, lineno in sorted(tokens.items()):
+        for tok, (rel, lineno) in sorted(tokens.items()):
             plain = "<" not in tok and "*" not in tok
             if plain and not tok.endswith(METRIC_SUFFIXES) \
                     and tok not in literals:
@@ -222,20 +234,24 @@ class MetricsDocChecker(RepoChecker):
             if plain and any(fnmatch.fnmatchcase(tok, g) for g in globs):
                 continue
             findings.append(Finding(
-                self.name, DOCS_REL, lineno,
-                f"docs/operations.md documents metric {tok!r} but nothing "
+                self.name, rel, lineno,
+                f"{rel} documents metric {tok!r} but nothing "
                 f"in the codebase registers it — stale docs or a renamed "
                 f"metric"))
 
-        findings.extend(self._check_spans(files, docs_path))
+        findings.extend(self._check_spans(files, repo_root))
         return findings
 
     def _check_spans(self, files: list[SourceFile],
-                     docs_path: str) -> list[Finding]:
-        """Trace spans <-> the docs trace-span table, both directions."""
+                     repo_root: str) -> list[Finding]:
+        """Trace spans <-> the docs trace-span tables, both directions."""
         findings: list[Finding] = []
         code_spans = collect_code_spans(files)
-        doc_spans = collect_doc_spans(docs_path)
+        doc_spans: dict[str, tuple[str, int]] = {}
+        for rel in (DOCS_REL, PORT_DOCS_REL):
+            for tok, lineno in collect_doc_spans(
+                    os.path.join(repo_root, rel)).items():
+                doc_spans.setdefault(tok, (rel, lineno))
         for name, (path, line) in sorted(code_spans.items()):
             if name not in doc_spans:
                 findings.append(Finding(
@@ -243,10 +259,10 @@ class MetricsDocChecker(RepoChecker):
                     f"trace span {name!r} is recorded here but absent "
                     f"from the trace-span table in {DOCS_REL} (between "
                     f"the trace-spans markers) — document it"))
-        for tok, lineno in sorted(doc_spans.items()):
+        for tok, (rel, lineno) in sorted(doc_spans.items()):
             if tok not in code_spans:
                 findings.append(Finding(
-                    self.name, DOCS_REL, lineno,
+                    self.name, rel, lineno,
                     f"the trace-span table documents {tok!r} but no "
                     f"obs.span/obs.phase/obs.record_span call site "
                     f"records it — stale docs or a renamed span"))

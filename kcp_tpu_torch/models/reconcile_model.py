@@ -13,6 +13,12 @@ tensors:
 Lanes 2 and 4 always go through ``decide_and_match``: the hand-written
 CUDA kernel on the card, its plain PyTorch version on the CPU.
 
+On the unsharded path each stage is an ``obs.span`` (``step.stamps``,
+``step.scatter``, ``step.decide_match``, ``step.splitter``,
+``step.stats``, ``step.compact``, ``step.wire``): a child of the
+caller's ``step.dispatch`` when its tick is traced, one context-variable
+read when it is not. They time the host's launches, not the device.
+
 On a mesh (``mesh=``) the state is a ReconcileState of
 :class:`~kcp_tpu_torch.parallel.mesh.ShardedTensor` (``shard_state``):
 the wire is unpacked once on the mesh's lead device, each row shard
@@ -43,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.cuda_kernels import decide_and_match, decide_and_match_shards
 from ..ops.diff import (
     DECISION_NOOP,
@@ -137,40 +144,45 @@ def _step(state: ReconcileState, deltas: ReconcileDeltas, patch_capacity: int,
     i32 = torch.int32
     # 1. scatter deltas, routed by side (apply_deltas owns the padding-
     #    drop and unique-index contract)
-    up_vals, up_exists = apply_deltas(
-        state.up_vals, state.up_exists, deltas.idx,
-        deltas.vals, deltas.exists, deltas.valid & ~deltas.side)
-    down_vals, down_exists = apply_deltas(
-        state.down_vals, state.down_exists, deltas.idx,
-        deltas.vals, deltas.exists, deltas.valid & deltas.side)
+    with obs.span("step.scatter"):
+        up_vals, up_exists = apply_deltas(
+            state.up_vals, state.up_exists, deltas.idx,
+            deltas.vals, deltas.exists, deltas.valid & ~deltas.side)
+        down_vals, down_exists = apply_deltas(
+            state.down_vals, state.down_exists, deltas.idx,
+            deltas.vals, deltas.exists, deltas.valid & deltas.side)
 
     # 2+4. decision lanes and fan-out counts in one pass (only resident
     #      upstream objects fan out); the fleet form adds the per-segment
     #      live-row counts of the scattered state
-    lanes = decide_and_match(
-        up_vals, up_exists, down_vals, down_exists, state.status_mask,
-        state.pair_hashes, state.sel_hashes, seg_ids,
-        None if seg_ids is None else seg_capacity)
+    with obs.span("step.decide_match"):
+        lanes = decide_and_match(
+            up_vals, up_exists, down_vals, down_exists, state.status_mask,
+            state.pair_hashes, state.sel_hashes, seg_ids,
+            None if seg_ids is None else seg_capacity)
     decision, status_upsync, match_counts = lanes[:3]
 
     # 3. splitter lane
-    leaf = split_replicas(state.replicas, state.avail)
-    p_dirty = placement_changed(state.current, leaf)
+    with obs.span("step.splitter"):
+        leaf = split_replicas(state.replicas, state.avail)
+        p_dirty = placement_changed(state.current, leaf)
 
     # 5. global stats
-    stats = torch.stack([
-        up_exists.sum(dtype=i32),
-        (decision == 1).sum(dtype=i32),
-        (decision == 2).sum(dtype=i32),
-        (decision == 3).sum(dtype=i32),
-        status_upsync.sum(dtype=i32),
-        p_dirty.sum(dtype=i32),
-        match_counts.sum(dtype=i32),
-        deltas.valid.sum(dtype=i32),
-    ])
+    with obs.span("step.stats"):
+        stats = torch.stack([
+            up_exists.sum(dtype=i32),
+            (decision == 1).sum(dtype=i32),
+            (decision == 2).sum(dtype=i32),
+            (decision == 3).sum(dtype=i32),
+            status_upsync.sum(dtype=i32),
+            p_dirty.sum(dtype=i32),
+            match_counts.sum(dtype=i32),
+            deltas.valid.sum(dtype=i32),
+        ])
 
     new_state = state._replace(current=leaf)
-    patches = compact_patches(decision, status_upsync, patch_capacity)
+    with obs.span("step.compact"):
+        patches = compact_patches(decision, status_upsync, patch_capacity)
     outputs = ReconcileOutputs(
         patch_idx=patches.idx, patch_code=patches.code,
         patch_upsync=patches.upsync, patch_count=patches.count,
@@ -275,9 +287,11 @@ def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
     (negative = padding) whose downstream mirror becomes a copy of the
     resident upstream mirror; the copy runs before the delta scatter.
 
-    With ``seg_ids`` (the fleet's row->segment lane, already stamped; a
-    ShardedTensor on a mesh) the wire grows the tail of ``seg_capacity``
-    per-segment live-row counts, from the kernel's fleet form."""
+    With ``seg_ids`` (the fleet's row->segment lane, a ShardedTensor on a
+    mesh, whose step stamps each shard's block itself) the wire's segment
+    stamps are scattered into it, in place, and the wire grows the tail of
+    ``seg_capacity`` per-segment live-row counts, from the kernel's fleet
+    form."""
     b = state.up_vals.shape[0]
     if b > PACK_IDX_MASK + 1:
         raise ValueError(
@@ -291,20 +305,28 @@ def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
                            seg_ids=seg_ids, seg_capacity=seg_capacity)
         wire = sh.wire()
         return sh.state, wire if seg_ids is None else torch.cat([wire, sh.seg_counts])
-    if acks is not None and b > 0:
-        # padding (-1) must not scatter AT ALL: scatter_rows_drop routes
-        # it to a no-op write instead of clipping it onto row 0
-        valid = (acks >= 0) & (acks < b)
-        gather = acks.clamp(0, b - 1).long()
-        scatter_rows_drop(state.down_vals, acks, state.up_vals[gather], valid)
-        scatter_rows_drop(state.down_exists, acks, state.up_exists[gather], valid)
-    apply_mask_stamps(state.status_mask, packed)
-    new_state, out, seg_counts = _step(state, unpack_deltas(packed), patch_capacity,
-                                       seg_ids, seg_capacity)
-    wire = _pack_wire(out.patch_idx, out.patch_code, out.patch_upsync,
-                      out.patch_count, out.patch_overflow, out.stats,
-                      out.placement_dirty, out.leaf_replicas)
-    return new_state, wire if seg_counts is None else torch.cat([wire, seg_counts])
+    # the wire's side lanes first: the fleet's segment stamps, the acks
+    # copy, the mask stamps, and the delta lanes unpacked
+    with obs.span("step.stamps"):
+        if seg_ids is not None:
+            apply_seg_stamps(seg_ids, packed)
+        if acks is not None and b > 0:
+            # padding (-1) must not scatter AT ALL: scatter_rows_drop routes
+            # it to a no-op write instead of clipping it onto row 0
+            valid = (acks >= 0) & (acks < b)
+            gather = acks.clamp(0, b - 1).long()
+            scatter_rows_drop(state.down_vals, acks, state.up_vals[gather], valid)
+            scatter_rows_drop(state.down_exists, acks, state.up_exists[gather], valid)
+        apply_mask_stamps(state.status_mask, packed)
+        deltas = unpack_deltas(packed)
+    new_state, out, seg_counts = _step(state, deltas, patch_capacity, seg_ids, seg_capacity)
+    with obs.span("step.wire"):
+        wire = _pack_wire(out.patch_idx, out.patch_code, out.patch_upsync,
+                          out.patch_count, out.patch_overflow, out.stats,
+                          out.placement_dirty, out.leaf_replicas)
+        if seg_counts is not None:
+            wire = torch.cat([wire, seg_counts])
+    return new_state, wire
 
 
 def _pack_wire(patch_idx, patch_code, patch_upsync, patch_count, patch_overflow,
@@ -365,8 +387,6 @@ def reconcile_step_fleet(state: ReconcileState, seg_ids: torch.Tensor,
     segment ids (padding, unowned rows) drop out of the count. With
     ``mesh=``, ``seg_ids`` is a row-sharded ShardedTensor like the
     state's flags."""
-    if mesh is None:  # the sharded step stamps each shard's block itself
-        apply_seg_stamps(seg_ids, packed)
     new_state, wire = reconcile_step_packed(state, packed, acks, patch_capacity,
                                             mesh=mesh, seg_ids=seg_ids,
                                             seg_capacity=seg_capacity)

@@ -17,6 +17,7 @@ from .trace import (
     set_current,
     span,
     use,
+    wall,
     write_ctx,
 )
 
@@ -24,5 +25,5 @@ __all__ = [
     "PHASES", "TRACEPARENT", "TRACER", "TraceContext", "conv_begin",
     "ctx_from_wal", "current", "link_obj", "obj_link", "phase",
     "record_span", "reset_current", "set_current", "span", "use",
-    "write_ctx",
+    "wall", "write_ctx",
 ]

@@ -20,6 +20,14 @@ layer for the kcp-tpu fleet, Dapper-style:
   (``KCP_TRACE_BUFFER`` entries) served by ``GET /debug/trace?id=`` /
   ``?slowest=N`` — the router scatter-gathers shard buffers to assemble
   cross-process trees (:mod:`.assemble`);
+- the fused tick loop's timeline: each reconcile tick of
+  ``syncer.core.FusedCore`` takes a root from :meth:`Tracer.tick_context`
+  (head-sampled, or every tick while the tracer is *armed*), and its
+  stage spans are stamped on the wall clock that ``torch.profiler``'s
+  events use, so they lay over a device trace. :meth:`Tracer.arm` /
+  :meth:`Tracer.disarm` bracket a recording window: the spans of the
+  ticks it traces go to an unbounded list, returned whole, instead of
+  the ring, where every other span still goes;
 - reconcile causality: a sampled spec write's context rides its WAL
   record (``rec["tc"]``) and its shared watch :class:`Event` (one stamp
   for every watcher, the shared-Event discipline), plus an
@@ -126,6 +134,13 @@ class Tracer:
         self.proc = os.environ.get("KCP_TRACE_PROC", f"pid{os.getpid()}")
         self._buf: deque[dict] = deque(
             maxlen=max(64, int(os.environ.get("KCP_TRACE_BUFFER", "4096"))))
+        # while armed (arm/disarm), the spans of the ticks traced since
+        # arm() land here instead of the ring; those traces' ids
+        self._armed: list[dict] | None = None
+        self._armed_traces: set[str] = set()
+        # time.time() - time.perf_counter(), refreshed by each traced tick:
+        # wall() puts the tick loop's perf_counter points on the wall clock
+        self.perf_offset = time.time() - time.perf_counter()
         # object-identity links: id(snapshot) -> (snapshot, ctx, seq).
         # Entries hold a strong snapshot ref (presence implies identity,
         # the encode-cache discipline); bounded FIFO — the deque carries
@@ -170,6 +185,22 @@ class Tracer:
         return TraceContext(f"{rng.getrandbits(128):032x}",
                             f"{rng.getrandbits(64):016x}", sampled)
 
+    def tick_context(self) -> TraceContext | None:
+        """The root context of one reconcile tick: a fresh sampled root
+        while armed, else one on the head coin's say-so; None when
+        tracing is disabled (no draw) or the coin says no. A traced tick
+        also refreshes :attr:`perf_offset`."""
+        if not self.enabled:
+            return None
+        if self._armed is None and not self.head_sampled():
+            return None
+        self.perf_offset = time.time() - time.perf_counter()
+        ctx = self.mint(sampled=True)
+        with self._lock:
+            if self._armed is not None:
+                self._armed_traces.add(ctx.trace_id)
+        return ctx
+
     def child(self, ctx: TraceContext) -> TraceContext:
         """Same trace, fresh span id (the caller becomes the parent)."""
         return TraceContext(ctx.trace_id,
@@ -210,8 +241,35 @@ class Tracer:
         if attrs:
             span["attrs"] = attrs
         with self._lock:
-            self._buf.append(span)
+            if self._armed is not None and ctx.trace_id in self._armed_traces:
+                self._armed.append(span)
+            else:
+                self._buf.append(span)
         self._recorded.inc()
+
+    # ------------------------------------------------------------ arming
+
+    def arm(self) -> None:
+        """Start a recording window: every tick is traced, and the spans
+        of the ticks traced from now on go to a list that :meth:`disarm`
+        returns (not to the ring; every other span still goes to the
+        ring). Arming an armed tracer starts the list afresh."""
+        with self._lock:
+            self._armed = []
+            self._armed_traces = set()
+
+    def disarm(self) -> list[dict]:
+        """End the recording window: the spans of the ticks it traced,
+        oldest first ([] when not armed). Those ticks' spans recorded
+        later go to the ring."""
+        with self._lock:
+            spans, self._armed = self._armed, None
+            self._armed_traces = set()
+        return spans or []
+
+    @property
+    def armed(self) -> bool:
+        return self._armed is not None
 
     # ----------------------------------------------------- object links
 
@@ -273,12 +331,19 @@ TRACER = Tracer()
 # ---------------------------------------------------------------------------
 # module-level helpers — the call-site API (and what the kcp-lint span-
 # table checker reads: literal names in obs.span/obs.phase/obs.record_span
-# calls must appear in docs/operations.md's trace-span table)
+# calls must appear in the trace-span table of docs/operations.md or of
+# the port's docs/operations_torch.md)
 # ---------------------------------------------------------------------------
 
 
 def current() -> TraceContext | None:
     return _current.get()
+
+
+def wall(perf_t: float) -> float:
+    """A ``time.perf_counter()`` reading of a traced tick on the wall
+    clock that spans (and ``torch.profiler``'s events) are stamped on."""
+    return perf_t + TRACER.perf_offset
 
 
 def set_current(ctx: TraceContext | None) -> contextvars.Token:

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import Awaitable, Callable, Iterable, Sequence
 
 from ..utils.errors import is_retryable
@@ -134,6 +135,13 @@ class BatchController(Controller):
     in the queue's ``_processing`` set until ``complete_many`` — a
     concurrent drain can never hand out an item the in-flight tick still
     owns (re-adds park in ``_redo`` exactly as without overlap).
+
+    ``last_drain`` holds the ``time.perf_counter()`` bounds of the drain
+    that gave the batch being processed — from the drain's first step to
+    its return, so the wait for the first item and the batch window both
+    fall inside, and so does any other work the loop runs while the drain
+    waits — set just before ``process_batch`` is called (None until
+    then).
     """
 
     def __init__(
@@ -157,6 +165,12 @@ class BatchController(Controller):
         self.overlap_drain = overlap_drain
         self.ticks = 0
         self.items_processed = 0
+        self.last_drain: tuple[float, float] | None = None
+
+    async def _drain(self) -> tuple[list, float, float]:
+        t0 = time.perf_counter()
+        batch = await self.queue.drain(self.max_batch, self.batch_window)
+        return batch, t0, time.perf_counter()
 
     async def start(self, num_workers: int = 1) -> None:
         # one tick loop; num_workers kept for interface parity
@@ -166,10 +180,10 @@ class BatchController(Controller):
         next_drain: asyncio.Task | None = None
         while True:
             if next_drain is not None:
-                batch = await next_drain
+                batch, d0, d1 = await next_drain
                 next_drain = None
             else:
-                batch = await self.queue.drain(self.max_batch, self.batch_window)
+                batch, d0, d1 = await self._drain()
             if not batch:
                 if self.queue.shutting_down:
                     return
@@ -177,9 +191,9 @@ class BatchController(Controller):
             if self.overlap_drain and not self.queue.shutting_down:
                 # start draining the next batch NOW: its micro-batch
                 # window elapses while this tick encodes/dispatches
-                next_drain = asyncio.create_task(
-                    self.queue.drain(self.max_batch, self.batch_window))
+                next_drain = asyncio.create_task(self._drain())
             self.ticks += 1
+            self.last_drain = (d0, d1)
             self.items_processed += len(batch)
             try:
                 failed = list(await self.process_batch(batch))

@@ -68,7 +68,7 @@ from typing import Callable, NamedTuple, Protocol, Sequence
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, obs
 from ..models.reconcile_model import (
     MASK_STAMP_BIT,
     SEG_NONE,
@@ -620,10 +620,12 @@ class FusedBucket:
         )
         return _upload_state(state, self.device, self.mesh)
 
-    def submit(self) -> tuple[HostWire, tuple[int, int]] | None:
+    def submit(self, tick: obs.TraceContext | None = None,
+               ) -> tuple[HostWire, tuple[int, int]] | None:
         """Upload staged events, run one fused step, return the wire (its
         copy to the host already issued) plus the (patch_capacity, P)
-        needed to unpack it. None if nothing to do."""
+        needed to unpack it. None if nothing to do. ``tick`` is the
+        tick's trace context (None when the tick is not traced)."""
         if not self.dirty:
             return None
         t0 = time.perf_counter()
@@ -701,8 +703,13 @@ class FusedBucket:
         # poison_row): fires HERE, where a real launch failure would
         # surface — the quarantine machinery recovers either way
         faults.maybe_fail("device.step", rows=self._last_rows)
-        self._state, wire = reconcile_step_packed(
-            self._state, packed, acks, patch_capacity=k, mesh=self.mesh)
+        step = None if tick is None else obs.TRACER.child(tick)
+        token = obs.set_current(step)
+        try:
+            self._state, wire = reconcile_step_packed(
+                self._state, packed, acks, patch_capacity=k, mesh=self.mesh)
+        finally:
+            obs.reset_current(token)
         self._step_failures = 0
         wire = HostWire(wire, _mesh_devices(self.mesh))
         t3 = time.perf_counter()
@@ -710,6 +717,8 @@ class FusedBucket:
         # steady-state pack — keep the histograms separable
         _phase("full_upload" if was_stale else "pack", t1 - t0)
         _phase("step_dispatch", t3 - t2)
+        if step is not None:
+            obs.record_span("step.dispatch", step, tick.span_id, obs.wall(t2), t3 - t2)
         self.stats["ticks"] += 1
         return wire, (k, int(self._state.avail.shape[1]))
 
@@ -1050,11 +1059,15 @@ class FleetBatch:
         # bucket's overflow-doubled budget benefits the whole batch
         return min(sum(b.patch_capacity for b in self._members), self.B)
 
-    def submit(self) -> tuple[HostWire, FleetMeta] | None:
+    def submit(self, tick: obs.TraceContext | None = None,
+               ) -> tuple[HostWire, FleetMeta] | None:
         """Pack every dirty bucket's staged rows into one ragged batch,
         run ONE fused step, return the wire (its copy to the host already
         issued) plus the layout snapshot needed to unpack it at collect
-        time."""
+        time. ``tick`` is the tick's trace context (None when the tick is
+        not traced): the pack, the upload and the step record spans under
+        it, at the histograms' own perf_counter points, and the step's
+        stages (``reconcile_model``) record under ``step.dispatch``."""
         if not self.dirty:
             return None
         self._refresh_layout()
@@ -1168,14 +1181,26 @@ class FleetBatch:
         # rows whether dispatch is per-bucket or fleet-wide — the
         # differential fuzz relies on it
         faults.maybe_fail("device.step", rows=local_rows)
-        self._state, self._seg_ids, wire = reconcile_step_fleet(
-            self._state, self._seg_ids, packed_d, acks_d,
-            patch_capacity=k, seg_capacity=self._seg_capacity, mesh=self.mesh)
+        step = None if tick is None else obs.TRACER.child(tick)
+        token = obs.set_current(step)
+        try:
+            self._state, self._seg_ids, wire = reconcile_step_fleet(
+                self._state, self._seg_ids, packed_d, acks_d,
+                patch_capacity=k, seg_capacity=self._seg_capacity, mesh=self.mesh)
+        finally:
+            obs.reset_current(token)
         self._step_failures = 0
         wire = HostWire(wire, _mesh_devices(self.mesh))
         t3 = time.perf_counter()
         _phase("full_upload" if was_stale else "pack", t1 - t0)
         _phase("step_dispatch", t3 - t2)
+        if step is not None:
+            obs.record_span("fleet.pack", obs.TRACER.child(tick), tick.span_id,
+                            obs.wall(t0), t1 - t0,
+                            {"full_upload": True} if was_stale else None)
+            obs.record_span("fleet.put", obs.TRACER.child(tick), tick.span_id,
+                            obs.wall(t1), t2 - t1)
+            obs.record_span("step.dispatch", step, tick.span_id, obs.wall(t2), t3 - t2)
         self.stats["ticks"] += 1
         self.stats["empty_ticks"] += self.B == 0
         # member tick counters advance too: the fleet step covers every
@@ -1370,7 +1395,9 @@ class FusedCore:
             "fused-core", self._process_batch, batch_window=batch_window,
             overlap_drain=(pipeline == "double"),
         )
-        self._inflight: list[tuple[FusedBucket, HostWire, tuple]] = []
+        # (bucket, wire, meta, trace context of the submitting tick)
+        self._inflight: list[tuple[FusedBucket, HostWire, tuple,
+                                   obs.TraceContext | None]] = []
         self._flush_task: asyncio.Task | None = None
         self._eager_collect: bool | None = None  # resolved on first flush
         # quarantined keys awaiting their bounded-backoff requeue
@@ -1548,6 +1575,33 @@ class FusedCore:
     # ---------------------------------------------------------------- tick
 
     async def _process_batch(self, items: Sequence) -> list:
+        """One tick. The drain that gave ``items`` is its first phase
+        (``fused_drain_seconds``, and the span ``tick.drain``): its wall
+        time from its first step to its return, which holds the wait for
+        the first item and the batch window, and also whatever else the
+        loop ran meanwhile (the idle flush's collects and their routing,
+        the owners' callbacks). A traced tick (``obs.TRACER``'s head coin,
+        or every tick while the tracer is armed) records its root
+        ``fused.tick`` span from the drain's start, and one span per stage."""
+        drain = self.controller.last_drain
+        if drain is not None:
+            _phase("drain", drain[1] - drain[0])
+        tick = obs.TRACER.tick_context()
+        t0 = time.perf_counter()
+        try:
+            self._tick(items, t0, tick)
+        finally:
+            if tick is not None:
+                start = t0
+                if drain is not None:
+                    start = drain[0]
+                    obs.record_span("tick.drain", obs.TRACER.child(tick), tick.span_id,
+                                    obs.wall(drain[0]), drain[1] - drain[0])
+                obs.record_span("fused.tick", tick, None, obs.wall(start),
+                                time.perf_counter() - start, {"items": len(items)})
+        return []
+
+    def _tick(self, items: Sequence, t0: float, tick: obs.TraceContext | None) -> None:
         # 1. encode touched keys (engines re-read their informer caches);
         #    section=None items are retick markers — their bucket is
         #    already marked stale and will re-run on this tick. Items
@@ -1555,7 +1609,6 @@ class FusedCore:
         #    migration) are stale: touching them would resurrect rows in
         #    the old bucket — drop them, the replacement section was
         #    re-enqueued with the same keys.
-        t0 = time.perf_counter()
         # wall-clock tick anchor for convergence attribution: the engine
         # stamps which dispatch carried a traced row by pairing this with
         # its fused_apply callback time
@@ -1574,14 +1627,18 @@ class FusedCore:
         for section, keymasks in touched.items():
             self._encode_section(section, keymasks)
         if touched:
-            _phase("encode", time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            _phase("encode", t1 - t0)
+            if tick is not None:
+                obs.record_span("tick.encode", obs.TRACER.child(tick), tick.span_id,
+                                obs.wall(t0), t1 - t0)
 
         # 2. one fused step per dirty bucket; collection is pipelined.
         #    Occupancy telemetry per submit: how deep the in-flight window
         #    already was (depth histogram) and whether this dispatch
         #    overlapped an executing step (the pipeline's whole point)
         inflight_by_bucket: dict[int, int] = {}
-        for b, _w, _m in self._inflight:
+        for b, *_ in self._inflight:
             inflight_by_bucket[id(b)] = inflight_by_bucket.get(id(b), 0) + 1
         depth_h = REGISTRY.histogram(
             "fused_pipeline_depth",
@@ -1593,7 +1650,7 @@ class FusedCore:
                       else tuple(self.buckets.values()))
         for bucket in submitters:
             try:
-                submitted = bucket.submit()
+                submitted = bucket.submit(tick)
             except Exception as err:  # noqa: BLE001 — degraded-mode gate
                 if self._recover_step_failure(bucket, err):
                     continue
@@ -1614,7 +1671,7 @@ class FusedCore:
                         "fused_pipeline_overlap_ticks_total",
                         "submits issued while a previous step was still "
                         "in flight (overlapped ticks)").inc()
-                self._inflight.append((bucket, wire, meta))
+                self._inflight.append((bucket, wire, meta, tick))
 
         # 3. collect: per BUCKET, oldest in-flight wires beyond the
         #    pipeline window (blocking is fine by then — their data has
@@ -1627,20 +1684,18 @@ class FusedCore:
         #    wire is instantly "ready", which serializes dispatch into
         #    the tick.)
         counts: dict[int, int] = {}
-        for b, _w, _m in self._inflight:
+        for b, *_ in self._inflight:
             counts[id(b)] = counts.get(id(b), 0) + 1
         i = 0
         while i < len(self._inflight):
-            b, w, m = self._inflight[i]
+            b = self._inflight[i][0]
             if counts[id(b)] > self.fetch_depth:
-                self._inflight.pop(i)
                 counts[id(b)] -= 1
-                self._collect(b, w, m)
+                self._collect(*self._inflight.pop(i))
             else:
                 i += 1
         if self._inflight:
             self._schedule_flush()
-        return []
 
     # ------------------------------------------------ degraded-mode path
 
@@ -1764,8 +1819,12 @@ class FusedCore:
                               down_e[down_sel])
         section.refresh_mask()
 
-    def _collect(self, bucket: FusedBucket, wire: HostWire,
-                 meta: tuple) -> None:
+    def _collect(self, bucket: FusedBucket, wire: HostWire, meta: tuple,
+                 tick: obs.TraceContext | None = None) -> None:
+        """Fetch one in-flight wire and route its patches. ``tick`` is the
+        trace context of the tick that submitted the wire: the wait and
+        the routing record under it wherever the collect runs (in a later
+        tick, or off the tick path in the idle flush)."""
         t0 = time.perf_counter()
         # fetch blocks ONLY on the compact wire (its host copy was issued
         # at dispatch) — never on the resident state. The
@@ -1784,7 +1843,13 @@ class FusedCore:
         t1 = time.perf_counter()
         overflow = bucket.dispatch(host_wire, meta)
         _phase("collect_wait", t1 - t0)
-        _phase("dispatch", time.perf_counter() - t1)
+        t2 = time.perf_counter()
+        _phase("dispatch", t2 - t1)
+        if tick is not None:
+            obs.record_span("tick.collect", obs.TRACER.child(tick), tick.span_id,
+                            obs.wall(t0), t1 - t0, {"ready": ready})
+            obs.record_span("tick.route_apply", obs.TRACER.child(tick), tick.span_id,
+                            obs.wall(t1), t2 - t1)
         if overflow:
             # level-triggered: re-run the bucket with doubled capacity
             bucket.mark_stale()
@@ -1816,7 +1881,8 @@ class FusedCore:
             if not self._eager_collect:
                 await asyncio.sleep(IDLE_FLUSH_S)
             while self._inflight:
-                bucket, wire, meta = self._inflight[0]
+                entry = self._inflight[0]
+                wire = entry[1]
                 # exponential poll backoff, capped at 8 ms so a ready
                 # wire is still collected promptly
                 poll = 0.001
@@ -1829,8 +1895,7 @@ class FusedCore:
                 # the wire this iteration actually inspected
                 if not self._inflight or self._inflight[0][1] is not wire:
                     continue
-                self._inflight.pop(0)
-                self._collect(bucket, wire, meta)
+                self._collect(*self._inflight.pop(0))
         except asyncio.CancelledError:
             pass
 

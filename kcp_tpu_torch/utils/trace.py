@@ -14,7 +14,8 @@ time), so this module provides
   histogram (host-side structured timing),
 - :func:`device_trace` — a context manager around ``torch.profiler``
   writing a Chrome trace (``trace.json``) when deeper device attribution
-  is needed.
+  is needed, with the spans that ``obs.TRACER`` recorded meanwhile (the
+  fused tick's timeline) on a host track beside the device events.
 
 Everything is dependency-free and safe to call on hot paths: a span is
 two ``perf_counter`` calls and a dict update.
@@ -23,6 +24,7 @@ two ``perf_counter`` calls and a dict update.
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import os
 import threading
@@ -248,6 +250,34 @@ def warm_device_trace() -> None:
         _trace_warmed = True
 
 
+#: the Chrome trace's host track for ``obs.TRACER``'s spans: its name, and
+#: a thread id no thread has (Linux's largest pid is 2**22)
+SPAN_TRACK = "kcp spans"
+SPAN_TID = 2**31 - 1
+
+
+def add_span_track(path: str, spans: list[dict]) -> None:
+    """Append ``spans`` (``obs.TRACER`` records, wall-clock seconds) to the
+    Chrome trace at ``path`` as complete events on one host track. The
+    profiler writes its events in microseconds from the trace's
+    ``baseTimeNanoseconds``; the spans are put on the same origin."""
+    with open(path, encoding="utf-8") as f:
+        doc = json.load(f)
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    pid = os.getpid()
+    events = doc.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": SPAN_TID,
+                   "args": {"name": SPAN_TRACK}})
+    for s in spans:
+        args = {"trace": s["trace"], "span": s["span"], "parent": s["parent"]}
+        args.update(s.get("attrs") or {})
+        events.append({"ph": "X", "cat": "kcp_span", "name": s["name"], "pid": pid,
+                       "tid": SPAN_TID, "ts": s["t0"] * 1e6 - base_us,
+                       "dur": s["dur"] * 1e6, "args": args})
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+
+
 @contextlib.asynccontextmanager
 async def device_trace(log_dir: str, timings: dict):
     """``torch.profiler`` trace around a block of the running loop, written
@@ -258,8 +288,10 @@ async def device_trace(log_dir: str, timings: dict):
     of the loop's thread. The profiler's one-time start-up
     (:func:`warm_device_trace`) and the file's export run in worker
     threads; the session starts and stops on the loop, whose CPU ops it
-    records. ``timings`` receives the seconds of each step
-    (``warm_s``, ``start_s``, ``stop_s``, ``export_s``). Yields whether
+    records. ``obs.TRACER`` is armed while the session records, so every
+    fused tick is traced, and its spans are written into the file
+    (:func:`add_span_track`). ``timings`` receives the seconds of each
+    step (``warm_s``, ``start_s``, ``stop_s``, ``export_s``). Yields whether
     the profiler started; when it cannot (another profiler session is
     active in this process, or the profiler is unavailable) the block
     runs untraced and nothing is written.
@@ -268,6 +300,8 @@ async def device_trace(log_dir: str, timings: dict):
 
     from torch.autograd import profiler as autograd_profiler
     from torch.profiler import profile
+
+    from ..obs import TRACER
 
     t = timings
     t0 = time.perf_counter()
@@ -282,6 +316,7 @@ async def device_trace(log_dir: str, timings: dict):
             t0 = time.perf_counter()
             prof = profile(activities=_trace_activities())
             prof.start()
+            TRACER.arm()
             t["start_s"] = time.perf_counter() - t0
         except Exception as e:  # noqa: BLE001 — report, run untraced
             log.warning("device trace did not start: %s", e)
@@ -290,14 +325,16 @@ async def device_trace(log_dir: str, timings: dict):
         yield prof is not None
     finally:
         if prof is not None:
+            spans = TRACER.disarm()
             try:
                 t0 = time.perf_counter()
                 prof.stop()
                 t["stop_s"] = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 os.makedirs(log_dir, exist_ok=True)
-                await asyncio.to_thread(prof.export_chrome_trace,
-                                        os.path.join(log_dir, TRACE_FILE))
+                path = os.path.join(log_dir, TRACE_FILE)
+                await asyncio.to_thread(prof.export_chrome_trace, path)
+                await asyncio.to_thread(add_span_track, path, spans)
                 t["export_s"] = time.perf_counter() - t0
             except Exception as e:  # noqa: BLE001 — the caller sees no file
                 log.warning("device trace not written: %s", e)

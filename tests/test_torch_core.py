@@ -143,7 +143,7 @@ async def _lockstep(impl: str, pipeline: str, fleet: bool, seed: int,
         core.controller.enqueue_many(items)
         assert await _until(lambda: bucket.stats["ticks"] > before
                             and finished[0] == ctl.ticks
-                            and all(w.is_ready() for _b, w, _m in core._inflight)), (
+                            and all(w.is_ready() for _b, w, *_ in core._inflight)), (
             f"{impl}/{pipeline}: tick never ran for step {step}")
     await core.stop()
     assert not core._inflight
