@@ -30,22 +30,30 @@ Phases, each fatal on failure:
 4. device step vs CPU step — ``reconcile_step_fleet`` on the card and on
    the CPU from one seeded state and wire at B=131,072, S=64 (acks with
    padding, mask and segment stamps, then an overflow tick): the wires
-   must be byte-equal, and the card step may call no ``index_add_`` (the
-   kernel's fleet form counts the segments);
+   must be byte-equal, and so must every lane ``wire_scatter`` writes (the
+   mirrors, their flags, the status mask, the seg ids; each must change in
+   each tick), the card step may call no ``index_add_`` (the kernel's
+   fleet form counts the segments), and each card step launches
+   ``wire_scatter`` twice (the wire's side lanes, then the deltas);
+4c. ``wire_scatter``'s pair of launches against the torch path it
+   replaces, on the card, at B=1,048,576 (a wire of 128 entries, 1,024
+   acks): every lane it writes and the count of valid deltas equal,
+   back-to-back pair time, torch path time, byte bound;
 4b. sharded step vs unsharded card step — the same two ticks through a
    4-shard state on the card: byte-equal wires, one sharded kernel launch
    a tick, no ``index_add_``;
 5. main path — a closed churn loop through the port's ``FusedCore``
    (fleet batch on, pipeline "double") at 131,072 rows x 64 slots:
    every churned row must converge, the kernel's launch count must cover
-   every tick, and no step may fail or quarantine a row;
+   every tick with ``wire_scatter``'s twice that, and no step may fail or
+   quarantine a row;
 5b. main path, sharded — the same loop with ``FusedCore(mesh="4" over
    cuda:0)``: every row converges, the sharded kernel launches once a
    tick (one grouped launch over the card's 4 row shards), nothing is
    quarantined;
 5c. after the main path, what needs the profiler (a profiler session
    can leave later launches slower on the host, so none runs before the
-   host-clock readings of phases 5 and 5b): the device time of every phase-3, 3b, 14 and 19 case,
+   host-clock readings of phases 5 and 5b): the device time of every phase-3, 3b, 4c, 14 and 19 case,
    back to back and with the L2 flushed before every call by writing and
    by reading 256 MiB, each profiled call holding its expected device
    events (a short profile is taken again, three in all), and the colder
@@ -266,6 +274,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 ALU_OPS_PER_S = 67e12  # H100 SXM non-tensor peak (float32 table rate)
 SERVING = dict(b=131072, s=64, l=1, c=8, per_row=True)
 SEG_CAPACITY = 8
+# wire_scatter's timed case (phase 4c, chip_probe wire): fleet-1m's rows, a
+# wire of 128 entries (96 deltas, 32 mask stamps) and 1,024 acks
+WIRE_B, WIRE_DELTAS, WIRE_ACKS = 1_048_576, 96, 1024
+# the resident lanes beside seg_ids that wire_scatter writes
+WIRE_LANES = ("up_vals", "up_exists", "down_vals", "down_exists", "status_mask")
 # device ms of each kernel before its redesign at the serving shape, as
 # recorded in PERF.md §6 (decide_and_match before its persistent grid;
 # decide_and_match_sharded's four per-shard launches, counted and cold,
@@ -437,8 +450,8 @@ def device_profile(fn, torch) -> tuple[float, dict]:
 
 
 def step_case(rng, b, s, d, torch):
-    """A seeded fleet state + wire: per-row masks, deltas, acks with -1
-    padding, mask stamps carrying segment ids."""
+    """A seeded fleet state + wire: per-row masks, deltas (a tenth of them
+    deletes), acks with -1 padding, mask stamps carrying segment ids."""
     from kcp_tpu_torch.models import reconcile_model as tm
 
     up = rng.integers(1, 2**32, (b, s), dtype=np.uint32)
@@ -456,8 +469,12 @@ def step_case(rng, b, s, d, torch):
     seg = rng.integers(0, 8, b).astype(np.int32)
     seg[rng.random(b) < 0.05] = tm.SEG_NONE
     deltas = tm.example_deltas(b=b, s=s, d=d, seed=int(rng.integers(1 << 30)))
+    deltas = deltas._replace(exists=rng.random(d) >= 0.1)  # deletes among them
     stamps = np.zeros((32, s + 2), np.uint32)
-    stamps[:, s - 8:] = 1
+    # each stamp a mask row of its own, never the one the row holds
+    # (its last s // 8 columns), so a lost stamp column shows
+    stamps[:, :s] = rng.random((32, s)) < 0.25
+    stamps[:, 0] = 1
     stamps[:, s] = rng.choice(b, 32, replace=False)
     stamps[:, s + 1] = (4 | tm.MASK_STAMP_BIT
                         | (rng.integers(0, 8, 32).astype(np.uint32) << tm.SEG_SHIFT))
@@ -467,6 +484,115 @@ def step_case(rng, b, s, d, torch):
     acks = np.full(8192, -1, np.int32)
     acks[:512] = free[:512]
     return state, seg, packed, acks
+
+
+def wire_lanes(state, seg_ids) -> dict:
+    """The lanes that ``wire_scatter`` writes, by name."""
+    return {**{n: getattr(state, n) for n in WIRE_LANES}, "seg_ids": seg_ids}
+
+
+def check_wire_lanes(label: str, got: dict, want: dict, before: dict, torch) -> None:
+    """Fails unless every lane of ``got`` (the card's) equals ``want``'s
+    (the torch path's) in dtype, shape and every byte, or if a lane of
+    ``want`` equals ``before``'s: a tick that leaves a lane as it was
+    tests nothing there."""
+    for name, w in want.items():
+        g, w, b = got[name].cpu(), w.cpu(), before[name].cpu()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{label}: {name} is {g.dtype}{tuple(g.shape)}, the torch path's "
+                 f"{w.dtype}{tuple(w.shape)}")
+        if not torch.equal(g, w):
+            rows = (g != w).reshape(g.shape[0], -1).any(1).nonzero().flatten()
+            fail(f"{label}: {name} differs from the torch path's in {rows.numel()} rows, "
+                 f"first {rows[:10].tolist()}")
+        if torch.equal(w, b):
+            fail(f"{label}: the case left {name} as it was, so nothing of it was compared")
+
+
+def wire_bytes(packed, acks, b: int, per_row: bool) -> dict:
+    """The bytes each ``wire_scatter`` stage needs (each read once, each
+    write once): every entry's index and flags; the stamps' values, mask
+    rows and segment ids; each real ack's up row read and down row written
+    (and their flags); each valid delta's values read and row written."""
+    from kcp_tpu_torch.models.reconcile_model import MASK_STAMP_BIT
+
+    wire = np.asarray(packed).view(np.int32)
+    d, s = wire.shape[0], wire.shape[1] - 2
+    flags, idx = wire[:, s + 1], wire[:, s].astype(np.int64)
+    row = np.where(idx < 0, idx + b, idx)
+    ok = (row >= 0) & (row < b)
+    stamp = ((flags & 4) != 0) & ((flags & MASK_STAMP_BIT) != 0) & ok
+    delta = ((flags & 4) != 0) & ((flags & MASK_STAMP_BIT) == 0) & ok
+    acks = np.asarray(acks)
+    real = int(((acks >= 0) & (acks < b)).sum())
+    head = 8 * d
+    return {"stamps": head + 4 * acks.shape[0] + int(stamp.sum()) * (4 * s + (s if per_row else 0) + 4)
+            + real * 2 * (4 * s + 1),
+            "deltas": head + int(delta.sum()) * (8 * s + 1) + 4}
+
+
+def wire_case(torch, dev):
+    """``step_case`` cut to ``wire_scatter``'s timed case (``WIRE_*``):
+    the numpy state, seg ids, wire and acks, and the wire and acks on
+    ``dev``."""
+    from kcp_tpu_torch.models import reconcile_model as tm
+
+    state, seg, packed, acks = step_case(np.random.default_rng(21), WIRE_B, SERVING["s"],
+                                         WIRE_DELTAS, torch)
+    acks = acks[:WIRE_ACKS]
+    return state, seg, packed, acks, tm.to_device(packed, dev), tm.to_device(acks, dev)
+
+
+def wire_scatter_phase(torch, dev, card: str, timed: list) -> dict:
+    """4c. ``wire_scatter``'s two launches of a packed step (the side
+    lanes, then the deltas) at ``wire_case`` against the torch path they
+    replace, on the card, each on its own copy of the state: every lane
+    they write byte-equal, and the count of valid deltas (``stats[7]``)
+    equal. Prints the pair's and the torch path's time a step (events) and
+    the pair's byte bound; adds the pair to ``timed`` for its device time
+    after the profiler starts. Returns the kernel's record."""
+    from kcp_tpu_torch.models import reconcile_model as tm
+    from kcp_tpu_torch.ops.cuda_kernels import wire_scatter
+    from kcp_tpu_torch.ops.diff import apply_deltas
+
+    state, seg, packed, acks, pk, ak = wire_case(torch, dev)
+    deltas = tm.unpack_deltas(pk)
+
+    def kernel_pair(st, sg):
+        lanes = (st.up_vals, st.up_exists, st.down_vals, st.down_exists)
+        wire_scatter("stamps", pk, *lanes, st.status_mask, sg, ak)
+        return wire_scatter("deltas", pk, *lanes)
+
+    def torch_path(st, sg):
+        d = tm.unpack_deltas(pk)
+        tm.apply_side_lanes_plain(st, pk, ak, sg)
+        apply_deltas(st.up_vals, st.up_exists, d.idx, d.vals, d.exists, d.valid & ~d.side)
+        apply_deltas(st.down_vals, st.down_exists, d.idx, d.vals, d.exists, d.valid & d.side)
+        return d.valid.sum(dtype=torch.int32).reshape(1)
+
+    before = wire_lanes(tm.state_from_numpy(state, "cpu"), tm.to_device(seg, "cpu"))
+    got = (tm.state_from_numpy(state, dev), tm.to_device(seg, dev))
+    want = (tm.state_from_numpy(state, dev), tm.to_device(seg, dev))
+    applied, want_applied = kernel_pair(*got), torch_path(*want)
+    torch.cuda.synchronize()
+    label = (f"wire_scatter [a packed step's pair: B={WIRE_B} S={SERVING['s']} mask=row, "
+             f"wire {packed.shape[0]} entries ({int(deltas.valid.sum())} valid deltas), "
+             f"{int((acks >= 0).sum())} of {acks.shape[0]} acks real]")
+    check_wire_lanes(f"kernel {label}", wire_lanes(*got), wire_lanes(*want), before, torch)
+    if not torch.equal(applied, want_applied) or int(applied) == 0:
+        fail(f"kernel {label}: {int(applied)} valid deltas counted, the torch path "
+             f"{int(want_applied)}")
+    call_ms = time_ms(lambda: kernel_pair(*got), torch, 50)
+    plain_ms = time_ms(lambda: torch_path(*want), torch, 10)
+    nbytes = sum(wire_bytes(packed, acks, WIRE_B, True).values())
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel {label}: every lane it writes (mirrors, flags, status mask, seg ids) and "
+          f"the valid-delta count equal to the torch path's (tolerance: exact); {call_ms:.4f} "
+          f"ms per back-to-back pair (events), torch path {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms by bytes ({nbytes} B); library call: none [{card}]")
+    record = dict(max_abs_err=0, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes")
+    timed.append((label, lambda: kernel_pair(*got), 2, bound_ms, record))
+    return record
 
 
 def smoke_mesh(spec: str, dev, shards: int = SMOKE_SHARDS):
@@ -2592,19 +2718,28 @@ def main() -> None:
     state, seg, packed, acks = step_case(np.random.default_rng(7), b, s, 1024, torch)
     gpu = [tm.state_from_numpy(state, dev), tm.to_device(seg, dev)]
     cpu = [tm.state_from_numpy(state, "cpu"), tm.to_device(seg, "cpu")]
+    from kcp_tpu_torch.ops.cuda_kernels import wire_scatter
+
     for tick, cap in enumerate((8192, 256)):
         if tick:  # a second wire on the carried state; capacity forces overflow
             _st, _sg, packed, acks = step_case(np.random.default_rng(8), b, s, 1024, torch)
         outs = []
+        lanes_before = {k: v.clone() for k, v in wire_lanes(*cpu).items()}
+        before = wire_scatter.launches
         for side, d in ((gpu, dev), (cpu, torch.device("cpu"))):
             side[0], side[1], wire = tm.reconcile_step_fleet(
                 side[0], side[1], tm.to_device(packed, d), tm.to_device(acks, d),
                 patch_capacity=cap, seg_capacity=8)
             outs.append(tm.wire_to_numpy(wire))
         torch.cuda.synchronize()
+        if wire_scatter.launches - before != 2:
+            fail(f"step tick {tick}: {wire_scatter.launches - before} wire_scatter launches, "
+                 f"2 expected (the card step's side lanes and deltas)")
         if outs[0].tobytes() != outs[1].tobytes():
             diff = np.flatnonzero(outs[0] != outs[1])
             fail(f"step tick {tick}: card wire != CPU wire at {diff[:10].tolist()}")
+        check_wire_lanes(f"step tick {tick}", wire_lanes(*gpu), wire_lanes(*cpu),
+                         lanes_before, torch)
         if bool(outs[0][1]) != (cap == 256):
             fail(f"step tick {tick}: overflow flag {bool(outs[0][1])} at capacity {cap}")
 
@@ -2613,17 +2748,27 @@ def main() -> None:
                                 tm.to_device(acks, dev), patch_capacity=8192, seg_capacity=8)
 
     step_ms = time_ms(card_step, torch, 20)
-    print(f"step: reconcile_step_fleet card wire == CPU wire, 2 ticks at B={b} S={s} "
-          f"(acks, mask+segment stamps, overflow tick); device step {step_ms:.4f} ms "
-          f"incl. upload [{card}]")
+    print(f"step: reconcile_step_fleet card wire == CPU wire, and the mirrors, their "
+          f"flags, the status mask and the seg ids too, 2 ticks at B={b} S={s} (acks, "
+          f"mask+segment stamps, overflow tick), 2 wire_scatter launches a card step; "
+          f"device step {step_ms:.4f} ms incl. upload [{card}]")
     del cpu
+
+    # ---- 4c. wire_scatter's pair against the torch path, at fleet-1m's rows
+    wire_timed = []
+    record_wire = wire_scatter_phase(torch, dev, card, wire_timed)
 
     # ---- 4b. sharded step vs unsharded card step, byte-equal wires
     sharded_step = sharded_step_phase(torch, dev, card, b, s)
 
     # ---- 5. main path: closed loop through FusedCore, fleet on, double
     core = FusedCore(batch_window=0.0005)
+    wire0 = wire_scatter.launches
     _out, launches = main_path_phase(core, torch, decide_and_match, 1, card, "main path")
+    wire_launches = wire_scatter.launches - wire0
+    if wire_launches != 2 * launches:
+        fail(f"main path: {wire_launches} wire_scatter launches for {launches} steps (want 2 "
+             f"a step)")
     snap = REGISTRY.snapshot()
     phases = " ".join(
         f"{k[6:-8]}={v['mean'] * 1e3:.3f}ms" for k, v in sorted(snap.items())
@@ -2732,10 +2877,11 @@ def main() -> None:
     if multicard_timed:
         print(f"phases 19-20: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 3, 3b, 14: the kernels' device times and 14's compiled
+    # ---- 3, 3b, 4c, 14: the kernels' device times and 14's compiled
     #          compositions'; 4, 4b: no index_add_ in either step (profiled,
     #          so after the main path's readings)
     device_times(timed, card)
+    device_times(wire_timed, card, kernel="wire_scatter_kernel")
     device_times(compiled_timed, card, kernel=None)
     if multicard_timed:
         device_times(multicard_timed, card,
@@ -2780,13 +2926,17 @@ def main() -> None:
                           replaces="kcp_tpu/ops/pallas_kernels.py:223",
                           launches=(launches_sharded + a7_launches + multicard_launches
                                     + nccl_launches), library_ms=None)
+    record_wire.update(name="wire_scatter", route="cuda",
+                       source="kcp_tpu_torch/csrc/wire_scatter.cu",
+                       replaces="none: XLA scatters in kcp_tpu/models/reconcile_model.py and "
+                                "kcp_tpu/ops/diff.py", launches=wire_launches, library_ms=None)
     print("recorded before the redesign, not measured in this run (PERF.md §6): "
           + ", ".join(f"{r['name']} {RECORDED_EARLIER_MS[r['name']]} ms on the device "
                       f"against {r['ms']:.4f} ms now" for r in (record, record_sharded)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (record, record_sharded)]}))
+                                  for r in (record, record_sharded, record_wire)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -51,6 +51,12 @@ Run from the repo root on a card:
   misses per gate. Host path: it needs no card. With LOG, every record
   is also appended to that file as a JSON line.
 
+- ``python3 -m kcp_tpu_torch.chip_probe wire`` — ``wire_scatter``'s two
+  launches at ``fleet-1m``'s shape (1,048,576 rows, S=64, per-row mask, a
+  wire of 128 entries, 1,024 acks) against the torch path they replace on
+  the card: host µs per call, device ms per call and device events per call
+  (profiler), and the bytes each stage needs over the card's peak.
+
 Each prints one line per reading and, for ``ab``, one JSON line per tree.
 The measuring code and its cases are this tree's (``chip_smoke.py``'s
 helpers); only the package under test comes from TREE.
@@ -313,6 +319,53 @@ def readings(card: str, repeats: int) -> None:
                   + f"; bound {bound_ms:.5f} ms [{card}]", flush=True)
 
 
+def wire(card: str) -> None:
+    import torch
+
+    from kcp_tpu_torch.models import reconcile_model as tm
+    from kcp_tpu_torch.ops.cuda_kernels import wire_scatter
+    from kcp_tpu_torch.ops.diff import apply_deltas
+
+    cs = _smoke()
+    dev = torch.device("cuda")
+    state, seg, packed, acks, pk, ak = cs.wire_case(torch, dev)
+    b, s = cs.WIRE_B, cs.SERVING["s"]
+    st = tm.state_from_numpy(state, dev)
+    sg = tm.to_device(seg, dev)
+    lanes = (st.up_vals, st.up_exists, st.down_vals, st.down_exists)
+    deltas = tm.unpack_deltas(pk)
+
+    def torch_stamps():
+        tm.apply_side_lanes_plain(st, pk, ak, sg)
+        tm.unpack_deltas(pk)
+
+    def torch_scatter():
+        d = deltas
+        apply_deltas(st.up_vals, st.up_exists, d.idx, d.vals, d.exists, d.valid & ~d.side)
+        apply_deltas(st.down_vals, st.down_exists, d.idx, d.vals, d.exists, d.valid & d.side)
+        d.valid.sum(dtype=torch.int32)
+
+    need = cs.wire_bytes(packed, acks, b, True)
+    calls = {  # label -> (call, kernel name or None for every device event, bytes)
+        "wire_scatter stamps": (lambda: wire_scatter("stamps", pk, *lanes, st.status_mask, sg,
+                                                     ak), "wire_scatter_kernel", need["stamps"]),
+        "wire_scatter deltas": (lambda: wire_scatter("deltas", pk, *lanes),
+                                "wire_scatter_kernel", need["deltas"]),
+        "torch stamps (step.stamps on the CPU path)": (torch_stamps, None, need["stamps"]),
+        "torch scatter (step.scatter on the CPU path)": (torch_scatter, None, need["deltas"]),
+    }
+    for label, (fn, kernel, nbytes) in calls.items():
+        enq, drained = _host_us(fn, torch)
+        ms, events = cs.kernel_device_ms(fn, torch, 1 if kernel else None, label, kernel=kernel)
+        bound_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        print(f"wire [{label}; B={b} S={s} wire {packed.shape[0]} entries, "
+              f"{acks.shape[0]} acks]: host {enq:.1f} us per call, {drained:.1f} us with the "
+              f"device drained; device {ms:.4f} ms per call in {events} device event(s) "
+              f"(profiler, back to back); {nbytes} B needed, bound {bound_ms:.6f} ms at "
+              f"{cs.HBM_BYTES_PER_S / 1e12:.2f} TB/s ({bound_ms / ms * 100:.2f}%) [{card}]",
+              flush=True)
+
+
 def readings_ab(trees: list[str], repeats: int) -> None:
     for tree in trees:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "readings-in", tree,
@@ -481,7 +534,7 @@ def lanes(pairs: int, log_path: str = os.devnull) -> None:
 
 def main(argv: list[str]) -> None:
     if not argv or argv[0] not in ("host", "sweep", "readings", "ab", "measure", "lanes",
-                                   "host-calls", "readings-in"):
+                                   "host-calls", "readings-in", "wire"):
         raise SystemExit(__doc__)
     if argv[0] == "measure":
         measure(argv[1], float(argv[2]))
@@ -508,6 +561,8 @@ def main(argv: list[str]) -> None:
         host_ab(argv[1:], card) if argv[1:] else host(card)
     elif argv[0] == "sweep":
         sweep(card)
+    elif argv[0] == "wire":
+        wire(card)
     elif argv[0] == "readings":
         repeats = int(argv[1]) if len(argv) > 1 else 5
         readings_ab(argv[2:], repeats) if argv[2:] else readings(card, repeats)

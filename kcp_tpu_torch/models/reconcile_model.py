@@ -11,7 +11,11 @@ tensors:
   5. global convergence statistics
 
 Lanes 2 and 4 always go through ``decide_and_match``: the hand-written
-CUDA kernel on the card, its plain PyTorch version on the CPU.
+CUDA kernel on the card, its plain PyTorch version on the CPU. On the
+card the packed step's wire side lanes (segment stamps, the acks copy,
+mask stamps) and its delta scatters are two launches of ``wire_scatter``,
+read straight off the wire; on the CPU they are the drop-mode scatters of
+``ops.diff``, which stay the path the reference is checked against.
 
 On the unsharded path each stage is an ``obs.span`` (``step.stamps``,
 ``step.scatter``, ``step.decide_match``, ``step.splitter``,
@@ -50,7 +54,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..ops.cuda_kernels import decide_and_match, decide_and_match_shards
+from ..ops.cuda_kernels import decide_and_match, decide_and_match_shards, wire_scatter
 from ..ops.diff import (
     DECISION_NOOP,
     apply_deltas,
@@ -136,21 +140,31 @@ def reconcile_step(state: ReconcileState, deltas: ReconcileDeltas,
     return new_state, outputs
 
 
-def _step(state: ReconcileState, deltas: ReconcileDeltas, patch_capacity: int,
-          seg_ids: torch.Tensor | None = None, seg_capacity: int = 8,
+def _step(state: ReconcileState, deltas: ReconcileDeltas | torch.Tensor,
+          patch_capacity: int, seg_ids: torch.Tensor | None = None,
+          seg_capacity: int = 8,
           ) -> tuple[ReconcileState, ReconcileOutputs, torch.Tensor | None]:
     """The unsharded step; with ``seg_ids`` the kernel's fleet form also
-    gives the per-segment live-row counts (else None)."""
+    gives the per-segment live-row counts (else None). ``deltas`` is a
+    ReconcileDeltas, or on the card the packed wire itself, whose delta
+    entries one ``wire_scatter`` launch applies."""
     i32 = torch.int32
     # 1. scatter deltas, routed by side (apply_deltas owns the padding-
     #    drop and unique-index contract)
     with obs.span("step.scatter"):
-        up_vals, up_exists = apply_deltas(
-            state.up_vals, state.up_exists, deltas.idx,
-            deltas.vals, deltas.exists, deltas.valid & ~deltas.side)
-        down_vals, down_exists = apply_deltas(
-            state.down_vals, state.down_exists, deltas.idx,
-            deltas.vals, deltas.exists, deltas.valid & deltas.side)
+        if isinstance(deltas, torch.Tensor):
+            applied = wire_scatter("deltas", deltas, state.up_vals, state.up_exists,
+                                   state.down_vals, state.down_exists)[0]
+            up_vals, up_exists = state.up_vals, state.up_exists
+            down_vals, down_exists = state.down_vals, state.down_exists
+        else:
+            applied = None
+            up_vals, up_exists = apply_deltas(
+                state.up_vals, state.up_exists, deltas.idx,
+                deltas.vals, deltas.exists, deltas.valid & ~deltas.side)
+            down_vals, down_exists = apply_deltas(
+                state.down_vals, state.down_exists, deltas.idx,
+                deltas.vals, deltas.exists, deltas.valid & deltas.side)
 
     # 2+4. decision lanes and fan-out counts in one pass (only resident
     #      upstream objects fan out); the fleet form adds the per-segment
@@ -177,7 +191,7 @@ def _step(state: ReconcileState, deltas: ReconcileDeltas, patch_capacity: int,
             status_upsync.sum(dtype=i32),
             p_dirty.sum(dtype=i32),
             match_counts.sum(dtype=i32),
-            deltas.valid.sum(dtype=i32),
+            deltas.valid.sum(dtype=i32) if applied is None else applied,
         ])
 
     new_state = state._replace(current=leaf)
@@ -274,6 +288,27 @@ def apply_mask_stamps(status_mask: torch.Tensor, packed: torch.Tensor) -> torch.
     return status_mask
 
 
+def apply_side_lanes_plain(state: ReconcileState, packed: torch.Tensor,
+                           acks: torch.Tensor | None = None,
+                           seg_ids: torch.Tensor | None = None) -> None:
+    """The wire's side lanes as torch scatters, in place, in the step's
+    order: the segment stamps into ``seg_ids``, the acks copy (each acked
+    row's down mirror becomes its up mirror), the mask stamps. The packed
+    step's CPU path; on the card ``wire_scatter("stamps", ...)`` does the
+    same in one launch."""
+    b = state.up_vals.shape[0]
+    if seg_ids is not None:
+        apply_seg_stamps(seg_ids, packed)
+    if acks is not None and b > 0:
+        # padding (-1) must not scatter AT ALL: scatter_rows_drop routes
+        # it to a no-op write instead of clipping it onto row 0
+        valid = (acks >= 0) & (acks < b)
+        gather = acks.clamp(0, b - 1).long()
+        scatter_rows_drop(state.down_vals, acks, state.up_vals[gather], valid)
+        scatter_rows_drop(state.down_exists, acks, state.up_exists[gather], valid)
+    apply_mask_stamps(state.status_mask, packed)
+
+
 def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
                           acks: torch.Tensor | None = None,
                           patch_capacity: int = 8192, mesh=None,
@@ -306,19 +341,17 @@ def reconcile_step_packed(state: ReconcileState, packed: torch.Tensor,
         wire = sh.wire()
         return sh.state, wire if seg_ids is None else torch.cat([wire, sh.seg_counts])
     # the wire's side lanes first: the fleet's segment stamps, the acks
-    # copy, the mask stamps, and the delta lanes unpacked
+    # copy, the mask stamps. On the card one wire_scatter launch, and the
+    # delta lanes stay on the wire for the step's second launch; on the
+    # CPU the torch scatters, and the delta lanes unpacked
     with obs.span("step.stamps"):
-        if seg_ids is not None:
-            apply_seg_stamps(seg_ids, packed)
-        if acks is not None and b > 0:
-            # padding (-1) must not scatter AT ALL: scatter_rows_drop routes
-            # it to a no-op write instead of clipping it onto row 0
-            valid = (acks >= 0) & (acks < b)
-            gather = acks.clamp(0, b - 1).long()
-            scatter_rows_drop(state.down_vals, acks, state.up_vals[gather], valid)
-            scatter_rows_drop(state.down_exists, acks, state.up_exists[gather], valid)
-        apply_mask_stamps(state.status_mask, packed)
-        deltas = unpack_deltas(packed)
+        if state.up_vals.device.type == "cuda":
+            wire_scatter("stamps", packed, state.up_vals, state.up_exists, state.down_vals,
+                         state.down_exists, state.status_mask, seg_ids, acks)
+            deltas = packed
+        else:
+            apply_side_lanes_plain(state, packed, acks, seg_ids)
+            deltas = unpack_deltas(packed)
     new_state, out, seg_counts = _step(state, deltas, patch_capacity, seg_ids, seg_capacity)
     with obs.span("step.wire"):
         wire = _pack_wire(out.patch_idx, out.patch_code, out.patch_upsync,

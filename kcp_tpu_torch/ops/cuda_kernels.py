@@ -47,6 +47,15 @@ device. On a mesh whose row shards span the processes of a
 shards and one ``all_reduce`` on the group adds the other processes'
 counts. ``decide_and_match_sharded.launches`` (and ``.by_thread``)
 counts those grouped launches: one per device a call.
+
+``wire_scatter`` (``kcp_tpu_torch/csrc/wire_scatter.cu``, built into the
+same library) is the unsharded packed step's side lanes and delta scatters
+on the card, read straight off the wire: a ``"stamps"`` launch (segment
+stamps, the acks copy, mask stamps) and a ``"deltas"`` launch (both
+sides' deltas and the count of them). Its CPU form is
+:func:`~kcp_tpu_torch.ops.diff.scatter_rows_drop` and the step functions
+around it; the wrapper itself takes CUDA tensors only.
+``wire_scatter.launches`` (and ``.by_thread``) counts its launches.
 """
 
 from __future__ import annotations
@@ -104,7 +113,7 @@ def _nvcc() -> str:
         if path and os.path.exists(path):
             return path
     raise RuntimeError("nvcc not found (CUDA_HOME/bin or PATH): cannot build "
-                       "the decide_and_match kernel")
+                       "the port's CUDA kernels")
 
 
 def _source_key() -> str:
@@ -155,6 +164,9 @@ def _load() -> ctypes.CDLL:
         lib.kcp_decide_match.restype = ci
         lib.kcp_sm_count.argtypes = [ctypes.POINTER(ci)]
         lib.kcp_sm_count.restype = ci
+        lib.kcp_wire_scatter.argtypes = [ci, vp, ci, ci, ll, vp, vp, vp, vp, vp, vp, vp,
+                                         ci, vp, vp]
+        lib.kcp_wire_scatter.restype = ci
         _lib = lib
     return _lib
 
@@ -495,6 +507,97 @@ def _count(wrapper, launched: int) -> None:
         with _COUNT_LOCK:
             wrapper.launches += launched
             wrapper.by_thread[tid] = wrapper.by_thread.get(tid, 0) + launched
+
+
+# ---------------------------------------------------------------------------
+# The wire's side lanes and delta scatters
+# ---------------------------------------------------------------------------
+
+_WIRE_STAGES = {"stamps": 0, "deltas": 1}
+
+
+def _wire_arg(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+              dev: torch.device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"wire_scatter: {name} is {t.dtype}, want {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"wire_scatter: {name} must be {list(shape)}, got {list(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"wire_scatter: {name} is not contiguous")
+    if t.device != dev:
+        raise ValueError(f"wire_scatter: {name} on {t.device}, packed on {dev}")
+
+
+def wire_scatter(stage: str, packed, up_vals, up_exists, down_vals, down_exists,
+                 status_mask=None, seg_ids=None, acks=None):
+    """One launch of ``csrc/wire_scatter.cu`` over the int32 [D, S+2] wire,
+    in place on the resident mirrors (design and semantics there).
+
+    ``stage="stamps"``: the segment stamps into ``seg_ids`` (int32 [B], or
+    None), the acks copy (``acks`` int32 [A], -1 padding, or None) and the
+    mask stamps into a per-row ``status_mask`` (bool [B, S]; a bucket-wide
+    [S] mask takes none); returns None. ``stage="deltas"``: the delta
+    scatters into the up and down mirrors, after the stamps; returns the
+    int32 [1] count of the wire's valid delta entries (``stats[7]``).
+
+    Byte for byte what :func:`~kcp_tpu_torch.ops.diff.scatter_rows_drop`
+    does in ``reconcile_step_packed``'s CPU path. CUDA tensors only: every
+    argument is checked (dtype, shape, contiguity, device) before the
+    library is loaded, and CPU tensors are refused. ``wire_scatter.launches``
+    (and ``.by_thread``) counts launches: two a packed step."""
+    code = _WIRE_STAGES.get(stage)
+    if code is None:
+        raise ValueError(f"wire_scatter: stage {stage!r}, want one of {sorted(_WIRE_STAGES)}")
+    dev = packed.device
+    if packed.dtype != torch.int32 or packed.ndim != 2 or packed.shape[1] < 2:
+        raise TypeError(f"wire_scatter: packed must be int32 [D, S+2], got {packed.dtype} "
+                        f"{list(packed.shape)}")
+    if not packed.is_contiguous():
+        raise ValueError("wire_scatter: packed is not contiguous")
+    d, s = packed.shape[0], packed.shape[1] - 2
+    b = up_vals.shape[0]
+    _wire_arg("up_vals", up_vals, torch.int32, (b, s), dev)
+    _wire_arg("up_exists", up_exists, torch.bool, (b,), dev)
+    _wire_arg("down_vals", down_vals, torch.int32, (b, s), dev)
+    _wire_arg("down_exists", down_exists, torch.bool, (b,), dev)
+    mask = seg = ack = 0
+    n_acks = 0
+    if code == 0:
+        if status_mask is not None and status_mask.ndim == 2:
+            _wire_arg("status_mask", status_mask, torch.bool, (b, s), dev)
+            mask = status_mask.data_ptr()
+        if seg_ids is not None:
+            _wire_arg("seg_ids", seg_ids, torch.int32, (b,), dev)
+            seg = seg_ids.data_ptr()
+        if acks is not None:
+            if acks.ndim != 1:
+                raise ValueError(f"wire_scatter: acks must be [A], got {list(acks.shape)}")
+            _wire_arg("acks", acks, torch.int32, tuple(acks.shape), dev)
+            n_acks = acks.shape[0]
+            ack = acks.data_ptr()
+    if dev.type != "cuda":
+        raise ValueError(f"wire_scatter: tensors on {dev}; the kernel takes CUDA tensors "
+                         f"(the CPU path is ops.diff.scatter_rows_drop)")
+    applied = torch.empty(1, dtype=torch.int32, device=dev) if code else None
+    lib = _load()
+    idx = _index(dev)
+    # switching the current device costs more host time than the launch
+    # itself, so only a launch on another card switches
+    switch = idx != torch.cuda.current_device()
+    with torch.cuda.device(idx) if switch else contextlib.nullcontext():
+        rc = lib.kcp_wire_scatter(
+            code, packed.data_ptr(), d, s, b, up_vals.data_ptr(), up_exists.data_ptr(),
+            down_vals.data_ptr(), down_exists.data_ptr(), mask, seg, ack, n_acks,
+            applied.data_ptr() if code else 0,
+            torch.cuda.current_stream(idx).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wire_scatter: {stage} launch failed with CUDA error {rc}")
+    _count(wire_scatter, 1)
+    return applied
+
+
+wire_scatter.launches = 0
+wire_scatter.by_thread = {}
 
 
 def decide_and_match_shards(shards, lead: torch.device, seg_capacity=None, mesh=None):
